@@ -209,17 +209,17 @@ def predict(
     return ``(plan uint8 (D, H, W), qaff uint8 (3, D, H, W))``.
 
     ``out_path`` and lazy (chunked) inputs need the port's ``io/`` and
-    streaming percentile, which are not ported yet (ROADMAP.md, slice 2):
+    streaming percentile, which are not ported yet (ROADMAP.md, slice 3):
     they raise ``NotImplementedError``.
     """
     if out_path is not None:
         raise NotImplementedError(
-            "out_path streaming needs the port's io/ (ROADMAP.md, slice 2)"
+            "out_path streaming needs the port's io/ (ROADMAP.md, slice 3)"
         )
     if not isinstance(img, (np.ndarray, list, tuple)):
         raise NotImplementedError(
             "lazy (chunked) inputs need the port's io/ and streaming "
-            "percentile (ROADMAP.md, slice 2); pass an in-memory array"
+            "percentile (ROADMAP.md, slice 3); pass an in-memory array"
         )
     img = np.asarray(img)
     if img.ndim == 5:

@@ -10,9 +10,11 @@ Phases (any failure raises, and the script exits non-zero):
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build kernel K1 (``csrc/scatter_blend.cu``, one ``nvcc``); hold it
-   against its plain version with ``torch.equal`` on four cases, the
-   main-path shape among them, and time it, the plain loop and the
-   library call ``index_add_`` with CUDA events;
+   against its plain version with ``torch.equal`` on six cases, the
+   main-path shape among them, each printed with the path it took
+   (``vec 4`` or ``vec 1``, both required), and time it, the plain loop
+   and the library call ``index_add_`` with CUDA events at two shapes:
+   the main path's batch and a strip of 16 patches along x;
 3. the float32 forward on the card against the port's CPU forward
    (width 0.25, 32^3, TF32 off, max-abs <= 1e-4), and a small float32
    ``predict`` on the card against the CPU (MAE <= 1e-5);
@@ -42,6 +44,9 @@ import torch
 # H100 SXM data-sheet peaks: HBM bytes/s and float32 (non-tensor) FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+# ~50 ms of device clock cycles, longer than the host takes to queue a
+# timed run of K1, its plain loop or index_add_
+SPIN_CYCLES = 100_000_000
 K1_SOURCE = "aind_exaspim_neuron_segmentation_tpu_torch/csrc/scatter_blend.cu"
 K1_REPLACES = (
     "aind_exaspim_neuron_segmentation_tpu/ops/experimental/"
@@ -56,39 +61,50 @@ def check(cond, msg):
 
 
 def cuda_ms(fn, iters=20, warmup=3):
-    """Mean device time of ``fn`` in ms, from CUDA events after warm-up."""
+    """Mean device and host time of one call of ``fn`` in ms, after
+    warm-up. The device time comes from CUDA events; the stream first
+    spins for ~50 ms (``torch.cuda._sleep``), so the host has queued every
+    call before the device reaches them and the host's own time per call
+    (the second number) does not enter the first."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / iters
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host_ms
 
 
 def k1_cases(rng):
-    """(acc, probs, starts, trim) cases for K1, on the host (numpy)."""
+    """(name, (acc, probs, starts, trim)) cases for K1, on the host."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
+        patch_starts_array,
+    )
+
     cases = []
     # the two cases of tests/test_pallas.py
     r0 = np.random.default_rng(0)
-    cases.append((
+    cases.append(("pallas_overlaps", (
         r0.standard_normal((3, 32, 32, 32)).astype(np.float32),
         r0.standard_normal((4, 3, 8, 8, 8)).astype(np.float32),
         np.array([[0, 0, 0], [4, 4, 4], [4, 4, 4], [20, 16, 12]], np.int32),
         2,
-    ))
-    cases.append((
+    )))
+    cases.append(("pallas_untouched", (
         np.random.default_rng(1).standard_normal(
             (1, 16, 16, 16)).astype(np.float32),
         np.ones((1, 1, 4, 4, 4), np.float32),
         np.array([[2, 2, 2]], np.int32),
         0,
-    ))
-    # seeded overlapping + duplicated starts, non-cubic core
+    )))
+    # seeded overlapping + duplicated starts, non-cubic core, trim 3
     core, trim, dims = (10, 12, 14), 3, (40, 44, 48)
     starts = np.stack([
         rng.integers(-trim, d - c - trim + 1, 24)
@@ -96,12 +112,20 @@ def k1_cases(rng):
     ], axis=1).astype(np.int32)
     starts[5] = starts[2]
     starts[17] = starts[2]
-    cases.append((
+    cases.append(("random_overlapping", (
         rng.standard_normal((3,) + dims).astype(np.float32),
         rng.standard_normal((24, 3) + core).astype(np.float32),
         starts, trim,
-    ))
-    cases.append(main_path_k1_case(rng))
+    )))
+    # the first 16 starts of a 36^3 grid (patch 20, overlap 12, trim 4):
+    # two Z rows, voxels under up to 8 patches, aligned for float4
+    r3 = np.random.default_rng(3)
+    cases.append(("grid_rows_aligned", (
+        r3.standard_normal((3, 36, 36, 36)).astype(np.float32),
+        r3.standard_normal((16, 3, 12, 12, 12)).astype(np.float32),
+        patch_starts_array((36,) * 3, (20,) * 3, (12,) * 3)[:16], 4,
+    )))
+    cases.append(("main_path", main_path_k1_case(rng)))
     return cases
 
 
@@ -114,6 +138,17 @@ def main_path_k1_case(rng):
     )
     return (
         rng.standard_normal((3, 288, 288, 288)).astype(np.float32),
+        rng.random((16, 3, 80, 80, 80), dtype=np.float32),
+        starts, 8,
+    )
+
+
+def strip_k1_case(rng):
+    """The batch of a volume ~1024 voxels wide: 16 patches of 96^3 in one
+    (z, y) row along x, starts (0, 0, 64k), trim 8, into 3 x 96^2 x 1056."""
+    starts = np.array([(0, 0, 64 * k) for k in range(16)], np.int32)
+    return (
+        rng.standard_normal((3, 96, 96, 1056)).astype(np.float32),
         rng.random((16, 3, 80, 80, 80), dtype=np.float32),
         starts, 8,
     )
@@ -152,31 +187,38 @@ def k1_flat_index(acc, probs, starts, trim):
     return (((ch * d + z) * h + y) * w + x).reshape(-1)
 
 
-def phase_k1(scatter, dev):
-    """Bit-equality and timing of K1 against its plain loop; timing of the
-    library call ``index_add_`` that computes the same sum."""
-    rng = np.random.default_rng(7)
-    max_err = 0.0
-    for n, (acc, probs, starts, trim) in enumerate(k1_cases(rng)):
-        acc_d = torch.from_numpy(acc).to(dev)
-        probs_d = torch.from_numpy(probs).to(dev)
-        starts_d = torch.from_numpy(starts).to(dev)
-        want = scatter.scatter_batch_reference(acc_d.clone(), probs_d,
-                                               starts, trim)
-        got = scatter.scatter_batch(acc_d.clone(), probs_d, starts_d,
-                                    trim=trim, host_starts=starts)
-        torch.cuda.synchronize()
-        err = (got - want).abs().max().item()
-        max_err = max(max_err, err)
-        check(torch.equal(got, want),
-              f"K1 case {n} differs from the plain loop (max abs {err})")
-        print(f"K1 case {n}: acc {acc.shape} probs {probs.shape} "
-              f"equal to the plain loop")
-    # time at the main-path shape (the last case)
+def k1_check(scatter, dev, name, case):
+    """Hold K1 against its plain loop on ``case``; returns the max abs
+    error, the kernel's x width per thread and the plain result."""
+    acc, probs, starts, trim = case
     acc_d = torch.from_numpy(acc).to(dev)
-    kernel_ms = cuda_ms(lambda: scatter.scatter_batch(
+    probs_d = torch.from_numpy(probs).to(dev)
+    want = scatter.scatter_batch_reference(acc_d.clone(), probs_d, starts,
+                                           trim)
+    got = scatter.scatter_batch(acc_d.clone(), probs_d,
+                                torch.from_numpy(starts).to(dev), trim=trim,
+                                host_starts=starts)
+    torch.cuda.synchronize()
+    vec = scatter.scatter_batch.last_vec
+    err = (got - want).abs().max().item()
+    check(torch.equal(got, want),
+          f"K1 case {name} differs from the plain loop (max abs {err})")
+    print(f"K1 case {name}: acc {acc.shape} probs {probs.shape} vec {vec}, "
+          f"equal to the plain loop")
+    return err, vec, want
+
+
+def k1_time(scatter, dev, what, case, want, card):
+    """Time K1, its plain loop, ``index_add_`` and a device copy of the
+    same bytes on ``case`` (:func:`cuda_ms`); ``want`` is the plain loop's
+    result, for index_add_'s error."""
+    acc, probs, starts, trim = case
+    acc_d = torch.from_numpy(acc).to(dev)
+    probs_d = torch.from_numpy(probs).to(dev)
+    starts_d = torch.from_numpy(starts).to(dev)
+    kernel_ms, host_ms = cuda_ms(lambda: scatter.scatter_batch(
         acc_d, probs_d, starts_d, trim=trim, host_starts=starts))
-    plain_ms = cuda_ms(lambda: scatter.scatter_batch_reference(
+    plain_ms, _ = cuda_ms(lambda: scatter.scatter_batch_reference(
         acc_d, probs_d, starts, trim))
     # index_add_ sums duplicates with atomics, in no fixed order: close to
     # the loop, not bit-identical; its index is built outside the clock
@@ -186,15 +228,43 @@ def phase_k1(scatter, dev):
     lib.view(-1).index_add_(0, idx, flat)
     lib_err = (lib - want).abs().max().item()
     check(lib_err <= 1e-5, f"index_add_ differs from the loop by {lib_err}")
-    library_ms = cuda_ms(lambda: acc_d.view(-1).index_add_(0, idx, flat))
+    library_ms, _ = cuda_ms(lambda: acc_d.view(-1).index_add_(0, idx, flat))
     bound_ms, bound_by, moved = k1_bound_ms(acc.shape, probs.shape,
                                             starts, trim)
-    print(f"K1 main-path shape: kernel {kernel_ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, index_add_ {library_ms:.4f} ms (max abs "
-          f"{lib_err:.3e} from the loop), bound {bound_ms:.4f} ms "
-          f"({bound_by}, {moved / 1e6:.1f} MB)")
-    return dict(max_abs_err=max_err, ms=kernel_ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    # what this card reaches on the same bytes: half read, half written
+    src = torch.empty(moved // 8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms, _ = cuda_ms(lambda: dst.copy_(src))
+    print(f"K1 {what} shape: kernel {kernel_ms:.4f} ms ({host_ms:.4f} ms "
+          f"of host time per call), plain {plain_ms:.4f} ms, index_add_ "
+          f"{library_ms:.4f} ms (max abs {lib_err:.3e} from the loop), "
+          f"bound {bound_ms:.4f} ms ({bound_by}, {moved / 1e6:.2f} MB), "
+          f"device copy of the same bytes {copy_ms:.4f} ms; kernel at "
+          f"{moved / kernel_ms / 1e9:.3f} TB/s [{card}]")
+    return dict(ms=kernel_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
+
+
+def phase_k1(scatter, dev, card):
+    """Bit-equality of K1 against its plain loop on every case, and both
+    of its paths taken; timing of K1, the loop and the library call
+    ``index_add_`` at the main-path and the strip shapes."""
+    rng = np.random.default_rng(7)
+    max_err, vecs = 0.0, {}
+    for name, case in k1_cases(rng):
+        err, vecs[name], want = k1_check(scatter, dev, name, case)
+        max_err = max(max_err, err)
+    check(vecs["main_path"] == 4 and vecs["grid_rows_aligned"] == 4,
+          f"aligned cases did not take vec 4: {vecs}")
+    check(vecs["random_overlapping"] == 1,
+          f"random_overlapping did not take vec 1: {vecs}")
+    # the last case is the main-path shape
+    timed = k1_time(scatter, dev, "main-path", case, want, card)
+    strip = strip_k1_case(rng)
+    err, vec, want = k1_check(scatter, dev, "strip", strip)
+    check(vec == 4, f"strip took vec {vec}")
+    k1_time(scatter, dev, "strip", strip, want, card)
+    return dict(max_abs_err=max(max_err, err), **timed)
 
 
 def phase_parity(inference, dev):
@@ -291,6 +361,8 @@ def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
           and not aff[:, :, :, :8].any(), "leading trim border not zero")
     check(aff[:, 8:, 8:, 8:].min() > 0.0, "covered voxel is zero")
     check(launches > 0, "predict did not launch K1")
+    check(scatter.scatter_batch.last_vec == 4,
+          f"predict took K1's vec {scatter.scatter_batch.last_vec} path")
     want_plan, want_q = predigest_slab(torch.from_numpy(aff))
     check(plan.shape == (256,) * 3 and qaff.shape == (3,) + (256,) * 3
           and plan.dtype == np.uint8 and qaff.dtype == np.uint8,
@@ -363,7 +435,9 @@ def profile_predict(inference, runner, vol):
     print(f"profile: wall {wall * 1e3:.1f} ms, device kernels "
           f"{total / 1e3:.1f} ms (busy share {total / 1e6 / wall:.3f}) "
           f"[one stream: kernels do not overlap]")
-    for us, count, key in rows[:20]:
+    # the 20 largest, and K1 wherever it ranks
+    for us, count, key in [r for i, r in enumerate(rows)
+                           if i < 20 or "scatter_blend" in r[2]]:
         print(f"  {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
               f"x{count:<5d} {key[:100]}")
 
@@ -411,7 +485,7 @@ def main(argv):
     cuda_build.load()
     print(f"K1 built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    k1 = phase_k1(scatter, dev)
+    k1 = phase_k1(scatter, dev, card)
     phase_parity(inference, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runner, vol, launches = phase_main(inference, predigest_slab,

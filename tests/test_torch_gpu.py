@@ -20,13 +20,28 @@ import pytest
 import torch
 
 from aind_exaspim_neuron_segmentation_tpu_torch import inference
+from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
+    patch_starts_array,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import predigest, scatter
 
-K1_CASES = ("pallas_overlaps", "pallas_untouched", "random_overlapping")
+K1_CASES = ("pallas_overlaps", "pallas_untouched", "random_overlapping",
+            "grid_rows_aligned")
 
 
 def k1_case(name):
     """(acc, probs, starts, trim) host arrays for K1, seeded."""
+    if name == "grid_rows_aligned":
+        # the first 16 of the 27 starts of a 36^3 grid (patch 20, overlap
+        # 12, trim 4: cores 12^3 at 4, 12, 20): two Z rows, voxels under up
+        # to 8 patches, every core x origin a multiple of 4
+        rng = np.random.default_rng(3)
+        starts = patch_starts_array((36,) * 3, (20,) * 3, (12,) * 3)[:16]
+        return (
+            rng.standard_normal((3, 36, 36, 36)).astype(np.float32),
+            rng.standard_normal((16, 3, 12, 12, 12)).astype(np.float32),
+            starts, 4,
+        )
     if name == "pallas_overlaps":  # tests/test_pallas.py, first case
         rng = np.random.default_rng(0)
         return (
@@ -91,6 +106,46 @@ def test_kernel_bit_identical_on_card(cuda, name):
                                 host_starts=starts)
     torch.cuda.synchronize()
     assert scatter.scatter_batch.launches == before + 1
+    assert scatter.scatter_batch.last_vec == scatter.launch_plan(
+        acc.shape, probs.shape[2:], starts, trim)[2]
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_strip_bit_identical_on_card(cuda):
+    """One (z, y) row of 16 patches along x, as a ~1024-wide volume gives,
+    scaled down: cores 16^3 at x = 4 + 12k overlap their neighbours by 4."""
+    rng = np.random.default_rng(4)
+    starts = np.array([(0, 0, 12 * k) for k in range(16)], np.int32)
+    acc = torch.from_numpy(
+        rng.standard_normal((3, 24, 24, 204)).astype(np.float32)).to(cuda)
+    probs = torch.from_numpy(
+        rng.standard_normal((16, 3, 16, 16, 16)).astype(np.float32)).to(cuda)
+    want = scatter.scatter_batch_reference(acc.clone(), probs, starts, 4)
+    got = scatter.scatter_batch(acc.clone(), probs,
+                                torch.from_numpy(starts).to(cuda), trim=4,
+                                host_starts=starts)
+    torch.cuda.synchronize()
+    assert scatter.scatter_batch.last_vec == 4
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_batch_over_launch_batch_on_card(cuda):
+    """80 overlapping patches run as two launches (64, then 16), in order."""
+    rng = np.random.default_rng(5)
+    starts = rng.integers(0, 13, (80, 3)).astype(np.int32) * 4
+    acc = torch.from_numpy(
+        rng.standard_normal((3, 72, 72, 72)).astype(np.float32)).to(cuda)
+    probs = torch.from_numpy(
+        rng.standard_normal((80, 3, 16, 16, 16)).astype(np.float32)).to(cuda)
+    want = scatter.scatter_batch_reference(acc.clone(), probs, starts, 4)
+    before = scatter.scatter_batch.launches
+    got = scatter.scatter_batch(acc.clone(), probs,
+                                torch.from_numpy(starts).to(cuda), trim=4,
+                                host_starts=starts)
+    torch.cuda.synchronize()
+    assert scatter.scatter_batch.launches == before + 2
     assert torch.equal(got, want)
 
 

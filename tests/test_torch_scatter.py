@@ -59,6 +59,37 @@ def test_wrapper_on_cpu_runs_reference_in_place_without_counting():
     assert scatter.scatter_batch.launches == before
 
 
+def _main_path_starts():
+    """One batch of the 256^3 main path: a Z row of 4x4 patches of 96^3."""
+    grid = range(0, 256 - 96 + 64, 64)
+    return np.array([(64, y, x) for y in grid for x in grid], np.int32)
+
+
+@pytest.mark.parametrize("name,want", [
+    ("main_path", ((72, 8, 8), (152, 280, 280), 4)),
+    ("random_overlapping", (None, None, 1)),
+    ("aligned_w_odd", ((4, 4, 4), (12, 12, 16), 1)),
+    ("grid_rows_aligned", ((4, 4, 4), (24, 32, 32), 4)),
+])
+def test_launch_plan(name, want):
+    if name == "main_path":
+        args = ((3, 288, 288, 288), (80, 80, 80), _main_path_starts(), 8)
+    elif name == "aligned_w_odd":  # core x origins 4 and 8, W = 18
+        args = ((1, 16, 16, 18), (8, 8, 8),
+                np.array([[0, 0, 0], [0, 0, 4]], np.int32), 4)
+    else:
+        acc, probs, starts, trim = k1_case(name)
+        args = (acc.shape, probs.shape[2:], starts, trim)
+    lo, hi, vec = scatter.launch_plan(*args)
+    assert vec == want[2]
+    if want[0] is not None:
+        assert (lo, hi) == want[:2]
+    else:  # the box of the cores, from the starts themselves
+        core_lo = args[2] + args[3]
+        assert lo == tuple(core_lo.min(axis=0))
+        assert hi == tuple((core_lo + np.asarray(args[1])).max(axis=0))
+
+
 @pytest.mark.parametrize("start", [(-3, 0, 0), (0, 0, 20), (0, 21, 0)])
 def test_wrapper_rejects_cores_outside_acc(start):
     acc = torch.zeros((1, 16, 16, 16))
