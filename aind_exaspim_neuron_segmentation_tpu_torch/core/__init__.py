@@ -1,5 +1,8 @@
-"""Device-free numerics: patch-grid arithmetic and percentile normalize."""
+"""Patch-grid arithmetic, percentile normalize and affinity channels."""
 
+from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (  # noqa: F401
+    affinity_channels,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (  # noqa: F401
     count_patches,
     generate_patch_starts,

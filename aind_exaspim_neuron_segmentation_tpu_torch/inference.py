@@ -1,9 +1,12 @@
-"""Inference: ``load_model`` -> ``predict`` on the GPU.
+"""Inference: ``load_model`` -> ``predict`` on the GPU, then the host tail
+``affinities_to_segmentation`` -> ``segmentation_to_zipped_swcs``.
 
 The public surface and numbers follow the JAX package's ``inference``
 module: ``predict`` returns ``(3, D, H, W)`` float32 affinities, or
 ``(D, H, W)`` in mask mode, or the u8 ``(plan, qaff)`` digest pair with
-``predigest=True``. The sliding window runs on the device
+``predigest=True``; either affinity form segments on the host through the
+port's C++ engine (:mod:`.native`, :mod:`.postprocess`) into labels that
+skeletonize into a ZIP of SWC files. The sliding window runs on the device
 (:mod:`.ops.stitch`), streaming the volume in Z slabs when it exceeds the
 accumulator budget; slab boundaries recompute the overlapping patch rows,
 so every output voxel is final without host-side blending.
@@ -13,10 +16,12 @@ a CUDA request without a CUDA device raises, it never falls back.
 """
 
 import sys
+import zipfile
 
 import numpy as np
 import torch
 
+from aind_exaspim_neuron_segmentation_tpu_torch import native, postprocess
 from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
     DEFAULT_PERCENTILES,
     normalize,
@@ -209,17 +214,17 @@ def predict(
     return ``(plan uint8 (D, H, W), qaff uint8 (3, D, H, W))``.
 
     ``out_path`` and lazy (chunked) inputs need the port's ``io/`` and
-    streaming percentile, which are not ported yet (ROADMAP.md, slice 3):
+    streaming percentile, which are not ported yet (ROADMAP.md, slice 4):
     they raise ``NotImplementedError``.
     """
     if out_path is not None:
         raise NotImplementedError(
-            "out_path streaming needs the port's io/ (ROADMAP.md, slice 3)"
+            "out_path streaming needs the port's io/ (ROADMAP.md, slice 4)"
         )
     if not isinstance(img, (np.ndarray, list, tuple)):
         raise NotImplementedError(
             "lazy (chunked) inputs need the port's io/ and streaming "
-            "percentile (ROADMAP.md, slice 3); pass an in-memory array"
+            "percentile (ROADMAP.md, slice 4); pass an in-memory array"
         )
     img = np.asarray(img)
     if img.ndim == 5:
@@ -359,3 +364,140 @@ def predict(
     if predigest:
         return plan_out, qaff_out
     return out if affinity_mode else out[0]
+
+
+# --- Segmentation and skeletonization (host C++ engine) ---
+
+
+def _is_lazy(x):
+    return not isinstance(x, (np.ndarray, torch.Tensor, list)) and (
+        not hasattr(x, "__array__")
+    )
+
+
+_TORCH_DTYPES = {np.uint8: torch.uint8, np.float32: torch.float32}
+
+
+def _host_array(x, dtype):
+    """``x`` (numpy, list or a tensor on any device) as a C-contiguous
+    numpy array of ``dtype``; a tensor is copied to the host."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().to("cpu", _TORCH_DTYPES[dtype]).numpy()
+    return np.ascontiguousarray(x, dtype=dtype)
+
+
+def affinities_to_segmentation(
+    affinities,
+    agglomeration_thresholds=(0.6, 0.8, 0.9),
+    min_segment_size=100,
+    aff_threshold_low=0.1,
+    aff_threshold_high=0.9999,
+    out_path=None,
+):
+    """Affinities -> instance segmentation, uint32 (D, H, W) on the host.
+
+    Seeded watershed and hierarchical agglomeration over the requested
+    thresholds, keeping only the final threshold's labels, then dropping
+    segments of ``<= min_segment_size`` voxels and renumbering the rest
+    ``1..n`` by first appearance, as the reference does.
+
+    ``affinities`` may be:
+
+    * float ``(3, D, H, W)`` affinities, as a numpy array or a tensor on
+      any device (copied to the host);
+    * the ``(plan, qaff)`` uint8 pair of ``predict(..., predigest=True)``
+      or :func:`.ops.predigest.predigest_slab`, as numpy arrays or
+      tensors: the host replays pure integer work, bit-identical to the
+      float path on the volume they were digested from. The low/high
+      thresholds are baked into the plan bytes, so non-default
+      ``aff_threshold_*`` with a pair raise ``ValueError``.
+
+    Lazy (zarr/N5) handles, for affinities or for the pair, and
+    ``out_path`` streaming output need the port's ``io/`` and streaming
+    engine (ROADMAP.md, slice 4): a lazy handle raises
+    ``NotImplementedError``; ``out_path`` with dense input raises
+    ``ValueError``, as in the JAX package.
+    """
+    predigested = isinstance(affinities, tuple) and len(affinities) == 2
+    if _is_lazy(affinities[0] if predigested else affinities):
+        raise NotImplementedError(
+            "lazy (chunked) affinity handles need the port's io/ and "
+            "streaming segmentation (ROADMAP.md, slice 4); pass dense "
+            "affinities or the (plan, qaff) pair"
+        )
+    if out_path is not None:
+        raise ValueError(
+            "out_path streaming output requires a lazy (zarr/N5) "
+            "affinity handle"
+        )
+    if predigested:
+        if (aff_threshold_low, aff_threshold_high) != (0.1, 0.9999):
+            raise ValueError(
+                "aff thresholds are baked into the plan bytes at digest "
+                "time; re-digest with ops.predigest for non-defaults"
+            )
+        seg = native.agglomerate_last_pre(
+            _host_array(affinities[0], np.uint8),
+            _host_array(affinities[1], np.uint8),
+            list(agglomeration_thresholds),
+        )
+        return postprocess.remove_small_segments(seg, min_segment_size)
+
+    seg = None
+    for seg in postprocess.agglomerate(
+        _host_array(affinities, np.float32),
+        thresholds=list(agglomeration_thresholds),
+        aff_threshold_low=aff_threshold_low,
+        aff_threshold_high=aff_threshold_high,
+    ):
+        pass  # keep only the last threshold (reference deque maxlen=1)
+    return postprocess.remove_small_segments(seg, min_segment_size)
+
+
+def skeletonize(segmentation, anisotropy=(1.0, 1.0, 1.0)):
+    """Segmentation -> ``{segment_id: Skeleton}`` via TEASAR, with the
+    reference's kimimaro parameters: scale 1.25, const 450, pdrf exponent
+    4 and scale 100000, soma detection / acceptance 1000 / 3500, soma
+    invalidation 1.0 / 300, fix_borders, fill_holes, one thread."""
+    return postprocess.skeletonize(
+        segmentation,
+        scale=1.25,
+        const=450,
+        pdrf_exponent=4,
+        pdrf_scale=100000,
+        soma_detection_threshold=1000,
+        soma_acceptance_threshold=3500,
+        soma_invalidation_scale=1.0,
+        soma_invalidation_const=300,
+        anisotropy=anisotropy,
+        fix_borders=True,
+        fill_holes=True,
+    )
+
+
+def skeletons_to_zipped_swcs(skeletons, zip_path):
+    """Write one ``{id}.swc`` entry per skeleton into a ZIP archive."""
+    with zipfile.ZipFile(zip_path, "w") as zf:
+        for seg_id, skel in skeletons.items():
+            zf.writestr(f"{seg_id}.swc", skel.to_swc())
+
+
+def segmentation_to_zipped_swcs(segmentation, zip_path, anisotropy=(1, 1, 1)):
+    """Segmentation -> TEASAR skeletons -> zipped SWC archive; returns the
+    skeletons."""
+    skeletons = skeletonize(segmentation, anisotropy=anisotropy)
+    skeletons_to_zipped_swcs(skeletons, zip_path)
+    return skeletons
+
+
+def voxelize_skeletons(skeletons, shape):
+    """Rasterize skeleton vertices (rounded) back into a uint32 label
+    volume of ``shape``; the inverse of :func:`skeletonize`, used as a
+    round-trip check."""
+    out = np.zeros(shape, dtype=np.uint32)
+    for seg_id, skel in skeletons.items():
+        verts = np.round(np.asarray(skel.vertices)).astype(np.int64)
+        keep = np.all((verts >= 0) & (verts < np.asarray(shape)), axis=1)
+        v = verts[keep]
+        out[v[:, 0], v[:, 1], v[:, 2]] = seg_id
+    return out

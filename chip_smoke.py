@@ -25,7 +25,23 @@ Phases (any failure raises, and the script exits non-zero):
    with K1's launch count read around it; then the same checkpoint in
    float32 (TF32 off, BN unfolded) on the same volume, the bf16
    affinities held to MAE <= 5e-3 and max-abs <= 0.15 of it;
-5. one ``{"kernels": [...]}`` line, the card line, and as the last line
+5. the host tail's build: ``g++ --version``, ``os.cpu_count()``, whether
+   ``zlib.h`` and ``zstd.h`` compile (printed, never a failure), and the
+   port's C++ engine built with ``g++`` and timed;
+6. the tail's known answer at 256^3: 32 separated tubes, their exact
+   affinities made (``core.affinities.affinity_channels``) and digested
+   (``predigest_slab``) on the card; ``affinities_to_segmentation`` of
+   the digest pair equals that of the float affinities bit for bit, and
+   both equal the tubes renumbered; ``segmentation_to_zipped_swcs``
+   writes ``1.swc`` .. ``32.swc``, and every vertex of
+   ``voxelize_skeletons`` lies in its own segment;
+7. the main path's tail: phase 4's digest pair segmented (the engine's
+   stage times on stderr, ``EXA_DEBUG_TIMING``) into labels ``1..n``
+   each over 100 voxels, skeletonized into a zip whose entries are
+   exactly the ids, with the stage times; then a 128^3 crop of phase
+   4's float affinities digested on the card, whose pair labels equal
+   its float labels bit for bit;
+8. one ``{"kernels": [...]}`` line, the card line, and as the last line
    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -33,10 +49,12 @@ non-zero and prints no result.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
 import time
+import zipfile
 
 import numpy as np
 import torch
@@ -327,7 +345,8 @@ def calibrated_checkpoint(inference, vol, dev, path):
 
 def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
     """The main path at full width, then its float32 reference; returns
-    the K1 launch count of the main path."""
+    the runner, the volume, the K1 launch count of the main path, its
+    affinities and digest pair and the digest predict's wall seconds."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     vol = np.random.default_rng(3).integers(
@@ -406,7 +425,7 @@ def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
     # moves the MAE to the order of the affinities' spread (std ~0.09)
     check(mae <= 5e-3 and max_abs <= 0.15,
           f"bf16 vs float32 MAE {mae} > 5e-3 or max abs {max_abs} > 0.15")
-    return runner, vol, launches
+    return runner, vol, launches, aff, (plan, qaff), t_dig
 
 
 def profile_predict(inference, runner, vol):
@@ -456,6 +475,174 @@ def profile_predict(inference, runner, vol):
           f"{t_pad * 1e3:.1f} ms")
 
 
+def phase_tail_build(card):
+    """Build the port's C++ engine with ``g++`` and time it; print the
+    compiler, the host's CPU count and whether zlib's and zstd's headers
+    compile (an answer for later work, never a failure)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.native import build
+
+    cxx = subprocess.run([build.CXX, "--version"], capture_output=True,
+                         text=True, check=True, timeout=60)
+    print(f"tail build: {cxx.stdout.splitlines()[0]}; host "
+          f"os.cpu_count() {os.cpu_count()}")
+    for header in ("zlib.h", "zstd.h"):
+        probe = subprocess.run(
+            [build.CXX, "-fsyntax-only", "-x", "c++", "-"],
+            input=f"#include <{header}>\n", capture_output=True, text=True,
+            timeout=60,
+        )
+        print(f"tail build: <{header}> "
+              f"{'compiles' if probe.returncode == 0 else 'does not compile'}")
+    t0 = time.perf_counter()
+    path = build.rebuild()
+    build.load()
+    check(build.loaded_path() == path, "engine loaded from another path")
+    print(f"tail build: engine built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s ({os.path.basename(path)}) "
+          f"[{card}; {os.cpu_count()} CPUs]")
+
+
+def tube_labels(shape=(256, 256, 256), n=32, radius=4, seed=0):
+    """Seeded int32 labels of ``n`` straight tubes of ``radius``, along z,
+    y and x in turn, each spanning the volume but 8 voxels at either end.
+
+    Tube centres lie on two lattices 24 voxels apart, ``A`` (8 + 24 i)
+    and ``B`` (20 + 24 i). Tubes along z sit at (y, x) in A x A, along y
+    at (z, x) in A x B, along x at (z, y) in B x B, so tubes of two axes
+    differ by 12 in the coordinate they share, and tubes of one axis by
+    24: no two touch, with at least 3 voxels of background between
+    them. Labels are distinct random ids, to be renumbered.
+    """
+    rng = np.random.default_rng(seed)
+    lat_a = 8 + 24 * np.arange((shape[0] - 20) // 24)
+    lat_b = lat_a + 12
+    cells = {0: (lat_a, lat_a), 1: (lat_a, lat_b), 2: (lat_b, lat_b)}
+    lab = np.zeros(shape, np.int32)
+    ids = rng.choice(1 << 20, n, replace=False).astype(np.int32) + 1
+    r = np.arange(-radius, radius + 1)
+    disc = (r[:, None] ** 2 + r[None, :] ** 2) <= radius * radius
+    used = {0: set(), 1: set(), 2: set()}
+    for k in range(n):
+        axis = k % 3
+        u_lat, v_lat = cells[axis]
+        while True:
+            cell = (int(rng.choice(u_lat)), int(rng.choice(v_lat)))
+            if cell not in used[axis]:
+                used[axis].add(cell)
+                break
+        plane = np.zeros(tuple(s for a, s in enumerate(shape) if a != axis),
+                         bool)
+        u, v = cell
+        plane[u - radius:u + radius + 1, v - radius:v + radius + 1] = disc
+        span = [slice(None)] * 3
+        span[axis] = slice(8, shape[axis] - 8)
+        view = np.moveaxis(lab[tuple(span)], axis, 0)
+        view[:, plane] = ids[k]
+    return lab
+
+
+def phase_tail_known(inference, predigest_slab, affinity_channels, card,
+                     dev, tmp):
+    """Known answer at 256^3: 32 separated tubes, exact affinities made
+    and digested on the card; pair and float labels equal each other and
+    the tubes up to renumbering; 32 SWC entries; every skeleton vertex
+    inside its own segment."""
+    lab = tube_labels()
+    t0 = time.perf_counter()
+    aff = affinity_channels(torch.from_numpy(lab).to(dev))
+    plan, qaff = predigest_slab(aff)
+    torch.cuda.synchronize()
+    t_dev = time.perf_counter() - t0
+    check(aff.shape == (3, 256, 256, 256) and aff.device.type == dev.type,
+          f"affinity_channels gave {tuple(aff.shape)} on {aff.device}")
+
+    t0 = time.perf_counter()
+    seg = inference.affinities_to_segmentation((plan, qaff))
+    t_pair = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg_f = inference.affinities_to_segmentation(aff)
+    t_float = time.perf_counter() - t0
+    check(np.array_equal(seg, seg_f), "tubes: pair labels != float labels")
+    # a bijection between tube labels (and 0) and segment ids (and 0)
+    pairs = np.unique(lab.astype(np.int64) << 32 | seg.astype(np.int64))
+    gt_of, seg_of = pairs >> 32, pairs & 0xFFFFFFFF
+    check(len(pairs) == 33 and len(np.unique(gt_of)) == 33
+          and len(np.unique(seg_of)) == 33 and seg_of[gt_of == 0][0] == 0,
+          f"tubes: labels are not the tubes renumbered ({len(pairs)} pairs)")
+    check(int(seg.max()) == 32, f"tubes: {seg.max()} segments, not 32")
+
+    zip_path = os.path.join(tmp, "tubes.zip")
+    t0 = time.perf_counter()
+    skels = inference.segmentation_to_zipped_swcs(seg, zip_path)
+    t_skel = time.perf_counter() - t0
+    with zipfile.ZipFile(zip_path) as zf:
+        names = sorted(zf.namelist(), key=lambda s: int(s.split(".")[0]))
+    check(names == [f"{i}.swc" for i in range(1, 33)],
+          f"tubes: zip entries {names}")
+    vox = inference.voxelize_skeletons(skels, seg.shape)
+    for i in range(1, 33):
+        check((vox == i).any() and (seg[vox == i] == i).all(),
+              f"tubes: skeleton {i} leaves its segment")
+    print(f"tail known answer (32 tubes, 256^3): affinities + digest on "
+          f"the card {t_dev:.3f} s, segment pair {t_pair:.3f} s, segment "
+          f"float {t_float:.3f} s, skeletonize + zip {t_skel:.3f} s; pair "
+          f"== float == tubes renumbered, 32 SWC entries, vertices inside "
+          f"their segments [{card}; {os.cpu_count()} CPUs]")
+
+
+def phase_tail_main(inference, predigest_slab, aff, pair, t_predict, card,
+                    dev, tmp):
+    """The main path's digest pair segmented and skeletonized into a zip
+    (the engine's stage times on stderr), then the leading half-size crop
+    (128^3) of its float affinities digested on the card: pair labels ==
+    float labels."""
+    os.environ["EXA_DEBUG_TIMING"] = "1"
+    try:
+        t0 = time.perf_counter()
+        seg = inference.affinities_to_segmentation(pair)
+        t_seg = time.perf_counter() - t0
+    finally:
+        del os.environ["EXA_DEBUG_TIMING"]
+    counts = np.bincount(seg.ravel())
+    n = len(counts) - 1
+    check(seg.shape == aff.shape[1:] and seg.dtype == np.uint32,
+          f"main labels {seg.shape} {seg.dtype}")
+    check(n > 0 and (counts[1:] > 100).all(),
+          "main labels not contiguous 1..n with every segment > 100 voxels")
+    zip_path = os.path.join(tmp, "main.zip")
+    t0 = time.perf_counter()
+    skels = inference.segmentation_to_zipped_swcs(seg, zip_path)
+    t_skel = time.perf_counter() - t0
+    with zipfile.ZipFile(zip_path) as zf:
+        names = set(zf.namelist())
+    check(names == {f"{i}.swc" for i in range(1, n + 1)}
+          and set(skels) == set(range(1, n + 1)),
+          f"main zip holds {len(names)} entries for {n} segments")
+    print(f"tail main path ({aff.shape[1]}^3, full width, bf16 folded): "
+          f"predict (predigest) {t_predict:.3f} s, segment {t_seg:.3f} s, "
+          f"skeletonize + zip {t_skel:.3f} s; {n} segments, zip "
+          f"{os.path.getsize(zip_path)} bytes, background "
+          f"{counts[0]} voxels [{card}; {os.cpu_count()} CPUs]")
+
+    half = aff.shape[1] // 2
+    crop = np.ascontiguousarray(aff[:, :half, :half, :half])
+    t0 = time.perf_counter()
+    plan, qaff = predigest_slab(torch.from_numpy(crop).to(dev))
+    torch.cuda.synchronize()
+    t_dig = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg_p = inference.affinities_to_segmentation((plan, qaff))
+    t_pair = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seg_f = inference.affinities_to_segmentation(crop)
+    t_float = time.perf_counter() - t0
+    check(np.array_equal(seg_p, seg_f), "128^3 crop: pair labels != float")
+    print(f"tail {half}^3 crop of the main affinities: digest on the card "
+          f"{t_dig:.3f} s, segment pair {t_pair:.3f} s, float "
+          f"{t_float:.3f} s, {int(seg_p.max())} segments, pair == float "
+          f"[{card}; {os.cpu_count()} CPUs]")
+
+
 def main(argv):
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -466,6 +653,9 @@ def main(argv):
     from aind_exaspim_neuron_segmentation_tpu_torch import (
         cuda_build,
         inference,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (
+        affinity_channels,
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.ops import scatter
     from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
@@ -488,8 +678,13 @@ def main(argv):
     k1 = phase_k1(scatter, dev, card)
     phase_parity(inference, dev)
     with tempfile.TemporaryDirectory() as tmp:
-        runner, vol, launches = phase_main(inference, predigest_slab,
-                                           scatter, card, dev, tmp)
+        runner, vol, launches, aff, pair, t_predict = phase_main(
+            inference, predigest_slab, scatter, card, dev, tmp)
+        phase_tail_build(card)
+        phase_tail_known(inference, predigest_slab, affinity_channels, card,
+                         dev, tmp)
+        phase_tail_main(inference, predigest_slab, aff, pair, t_predict,
+                        card, dev, tmp)
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 

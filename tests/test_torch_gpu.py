@@ -174,3 +174,25 @@ def test_predict_on_card_matches_cpu(cuda):
     want_plan, want_q = predigest.predigest_slab(torch.from_numpy(got))
     np.testing.assert_array_equal(plan, want_plan.numpy())
     np.testing.assert_array_equal(qaff, want_q.numpy())
+
+
+@pytest.mark.gpu
+def test_on_card_digest_segments_like_the_float_path(cuda):
+    """Oracle affinities of two blocks and a bar, made and digested on the
+    card: the digest pair segments bit-identically to the float path."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (
+        affinity_channels,
+    )
+
+    lab = np.zeros((40, 36, 32), np.int32)
+    lab[2:38, 2:12, 3:29] = 7
+    lab[2:38, 20:30, 3:29] = 3
+    lab[20, 14:18, 2:30] = 9
+    aff = affinity_channels(torch.from_numpy(lab).to(cuda))
+    plan, qaff = predigest.predigest_slab(aff)
+    assert plan.device.type == qaff.device.type == "cuda"
+    pair = inference.affinities_to_segmentation((plan, qaff),
+                                                min_segment_size=50)
+    want = inference.affinities_to_segmentation(aff, min_segment_size=50)
+    assert pair.dtype == np.uint32 and pair.max() == 3
+    np.testing.assert_array_equal(pair, want)

@@ -384,6 +384,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "import sys\n"
         f"import {PORT}.inference, {PORT}.core, {PORT}.models.convert\n"
         f"import {PORT}.ops.scatter, {PORT}.cuda_build\n"
+        f"import {PORT}.native, {PORT}.postprocess.skeleton\n"
+        f"import {PORT}.core.affinities\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"
@@ -393,6 +395,18 @@ def test_port_imports_no_jax_in_a_fresh_process():
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_native_build_sources_lie_inside_the_port():
+    from aind_exaspim_neuron_segmentation_tpu_torch.native import build
+
+    port = os.path.join(REPO, PORT) + os.sep
+    names = sorted(os.path.basename(p) for p in build.sources())
+    assert names == ["agglomerate.cpp", "common.hpp", "edt.cpp", "edt.hpp",
+                     "rag.hpp", "remap.cpp", "teasar.cpp"]
+    for path in build.sources() + [build.lib_path()]:
+        assert os.path.realpath(path).startswith(port), path
+    assert "-lz" not in build.CXXFLAGS and "-lzstd" not in build.CXXFLAGS
 
 
 def test_port_and_chip_smoke_sources_import_no_jax():
