@@ -11,6 +11,13 @@ port's own C++ engine (``native/src``: watershed, agglomeration, remap,
 EDT, TEASAR; built with ``g++`` at first use) and ``postprocess``; it
 takes the float affinities or the u8 digest pair the card made.
 
+Volumes beyond host RAM stream: ``io.read`` opens a zarr / N5 store (or
+reads a TIFF) through the port's own codecs, ``predict`` reads a lazy
+handle slab by slab and writes ``out_path`` stores, the segmentation of
+a lazy handle runs the slab-streaming engine, and TEASAR of a lazy label
+store runs per-label crops. ``python -m
+aind_exaspim_neuron_segmentation_tpu_torch run`` chains the three.
+
 The JAX package ``aind_exaspim_neuron_segmentation_tpu`` is the numerical
 reference; this package imports nothing from it and never imports JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
@@ -24,7 +31,7 @@ def __getattr__(name):
     """Lazy submodule access: keep the package import lightweight."""
     import importlib
 
-    if name in ("core", "cuda_build", "inference", "models", "native",
-                "ops", "postprocess"):
+    if name in ("core", "cuda_build", "inference", "io", "models",
+                "native", "ops", "postprocess", "utils"):
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

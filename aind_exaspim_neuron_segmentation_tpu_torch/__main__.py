@@ -1,0 +1,266 @@
+"""Command-line interface: the README workflows as one-line commands.
+
+    python -m aind_exaspim_neuron_segmentation_tpu_torch predict \\
+        --input vol.zarr --model weights.pth --output affs.zarr
+    python -m aind_exaspim_neuron_segmentation_tpu_torch segment \\
+        --affinities affs.zarr --output seg.zarr
+    python -m aind_exaspim_neuron_segmentation_tpu_torch swc \\
+        --segmentation seg.zarr --output skeletons.zip
+    python -m aind_exaspim_neuron_segmentation_tpu_torch run \\
+        --input vol.zarr --model weights.pth --workdir /tmp/job \\
+        --output skeletons.zip
+
+Every path accepts what :func:`.io.read` accepts (zarr / N5 / TIFF,
+local or gs:// / s3://); volume outputs stream to Zarr stores, so
+beyond-RAM volumes work end to end (``run`` uses the on-device digest
+and the streaming segmentation throughout). The model and the digest of
+float affinities run on ``--device`` (before the subcommand; default
+``cuda``, which raises without a card). Each command prints one JSON
+line as its result.
+"""
+
+import argparse
+import json
+import os
+import time
+
+
+def _emit(obj):
+    """Print the command's ONE machine-readable result line."""
+    print(json.dumps(obj))
+
+
+def _triple(text):
+    """'96' or '96,96,96' -> (96, 96, 96)."""
+    parts = [int(p) for p in text.replace("x", ",").split(",")]
+    if len(parts) == 1:
+        parts = parts * 3
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError(f"expected 1 or 3 ints: {text!r}")
+    return tuple(parts)
+
+
+def _read(path):
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
+    return io.read(path)
+
+
+def _add_predict_args(p):
+    p.add_argument("--model", default=None,
+                   help=".pth checkpoint (default: random weights)")
+    p.add_argument("--foreground", action="store_true",
+                   help="1-channel foreground mode instead of affinities")
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--patch", type=_triple, default=(96, 96, 96),
+                   metavar="D,H,W")
+    p.add_argument("--overlap", type=_triple, default=(32, 32, 32),
+                   metavar="D,H,W")
+    p.add_argument("--trim", type=int, default=8)
+    p.add_argument("--brightness-clip", type=float, default=1000)
+    p.add_argument("--blend", choices=("uniform", "gaussian"),
+                   default="uniform")
+    p.add_argument("--width-multiplier", type=float, default=1,
+                   help="channel-ladder scale (must match the checkpoint)")
+
+
+def cmd_predict(args):
+    """Volume -> affinity Zarr store (or digest plan + qaff stores)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import inference
+
+    runner = inference.load_model(
+        args.model, affinity_mode=not args.foreground, device=args.device,
+        width_multiplier=args.width_multiplier,
+    )
+    img = _read(args.input)
+    inference.predict(
+        img, runner,
+        affinity_mode=not args.foreground,
+        batch_size=args.batch_size,
+        brightness_clip=args.brightness_clip,
+        patch_shape=args.patch,
+        overlap=args.overlap,
+        trim=args.trim,
+        blend_mode=args.blend,
+        out_path=(tuple(args.predigest_out) if args.predigest_out
+                  else args.output),
+        predigest=bool(args.predigest_out),
+        verbose=not args.quiet,
+    )
+    _emit({"predict": args.predigest_out or args.output})
+
+
+def cmd_segment(args):
+    """Affinities (float store or digest pair) -> label Zarr store."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import inference
+
+    if args.plan:
+        affs = (_read(args.plan), _read(args.qaff))
+    else:
+        affs = _read(args.affinities)
+    inference.affinities_to_segmentation(
+        affs,
+        agglomeration_thresholds=tuple(args.thresholds),
+        min_segment_size=args.min_size,
+        out_path=args.output,
+        verbose=not args.quiet,
+        device=args.device,
+    )
+    _emit({"segment": args.output})
+
+
+def cmd_swc(args):
+    """Segmentation store -> zipped SWC skeletons."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import inference
+
+    skeletons = inference.segmentation_to_zipped_swcs(
+        _read(args.segmentation), args.output,
+        anisotropy=tuple(args.anisotropy),
+    )
+    _emit({"swc": args.output, "n": len(skeletons)})
+
+
+def cmd_run(args):
+    """Input volume -> digest predict -> streaming segment -> SWC zip.
+
+    The beyond-RAM configuration: the digests and the segmentation live
+    in Zarr stores under ``--workdir``, never dense in host RAM.
+    """
+    from aind_exaspim_neuron_segmentation_tpu_torch import inference
+
+    os.makedirs(args.workdir, exist_ok=True)
+    plan_p = os.path.join(args.workdir, "plan.zarr")
+    qaff_p = os.path.join(args.workdir, "qaff.zarr")
+    seg_p = os.path.join(args.workdir, "segmentation.zarr")
+
+    runner = inference.load_model(
+        args.model, affinity_mode=True, device=args.device,
+        width_multiplier=args.width_multiplier,
+    )
+    img = _read(args.input)
+    t0 = time.time()
+    plan, qaff = inference.predict(
+        img, runner, batch_size=args.batch_size,
+        brightness_clip=args.brightness_clip,
+        patch_shape=args.patch, overlap=args.overlap, trim=args.trim,
+        blend_mode=args.blend, predigest=True, out_path=(plan_p, qaff_p),
+        verbose=not args.quiet,
+    )
+    t1 = time.time()
+    seg = inference.affinities_to_segmentation(
+        (plan, qaff),
+        agglomeration_thresholds=tuple(args.thresholds),
+        min_segment_size=args.min_size,
+        out_path=seg_p,
+        verbose=not args.quiet,
+    )
+    t2 = time.time()
+    inference.segmentation_to_zipped_swcs(
+        seg, args.output, anisotropy=tuple(args.anisotropy)
+    )
+    t3 = time.time()
+    _emit({
+        "run": args.output,
+        "stages_s": {"predict": round(t1 - t0, 1),
+                     "segment": round(t2 - t1, 1),
+                     "swc": round(t3 - t2, 1)},
+        "workdir": args.workdir,
+    })
+
+
+def build_parser():
+    """Build the top-level argparse parser with its four subcommands."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import __version__
+
+    top = argparse.ArgumentParser(
+        prog="python -m aind_exaspim_neuron_segmentation_tpu_torch",
+        description=__doc__.split("\n\n")[0],
+    )
+    top.add_argument("--version", action="version",
+                     version=f"%(prog)s {__version__}")
+    top.add_argument(
+        "--device", choices=("cuda", "cpu"), default="cuda",
+        help="where the model and the digest of float affinities run "
+             "(default cuda: raises without a card). Goes BEFORE the "
+             "subcommand.",
+    )
+    sub = top.add_subparsers(dest="command", required=True)
+
+    p = sub.add_parser("predict", help="volume -> affinity Zarr store")
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", help="output .zarr path (float affinities)")
+    p.add_argument(
+        "--predigest-out", nargs=2, metavar=("PLAN", "QAFF"),
+        help="stream on-device digests to these two .zarr paths instead "
+             "of float affinities (4 bytes/voxel instead of 12)",
+    )
+    _add_predict_args(p)
+    p.add_argument("--quiet", action="store_true")
+    p.set_defaults(fn=cmd_predict)
+
+    p = sub.add_parser("segment",
+                       help="affinities (or digests) -> label Zarr store")
+    p.add_argument("--affinities", help="float (3,D,H,W) zarr/N5 store")
+    p.add_argument("--plan", help="digest plan store (with --qaff)")
+    p.add_argument("--qaff", help="digest qaff store (with --plan)")
+    p.add_argument("--output", required=True, help="output .zarr path")
+    p.add_argument("--thresholds", type=float, nargs="+",
+                   default=(0.6, 0.8, 0.9))
+    p.add_argument("--min-size", type=int, default=100)
+    p.add_argument("--quiet", action="store_true")
+    p.set_defaults(fn=cmd_segment)
+
+    p = sub.add_parser("swc", help="segmentation -> zipped SWC skeletons")
+    p.add_argument("--segmentation", required=True)
+    p.add_argument("--output", required=True, help="output .zip path")
+    p.add_argument("--anisotropy", type=float, nargs=3, default=(1, 1, 1))
+    p.set_defaults(fn=cmd_swc)
+
+    p = sub.add_parser(
+        "run", help="volume -> segmentation -> SWC zip (beyond-RAM path)"
+    )
+    p.add_argument("--input", required=True)
+    p.add_argument("--workdir", required=True,
+                   help="directory for the intermediate Zarr stores")
+    p.add_argument("--output", required=True, help="output SWC .zip path")
+    _add_predict_args(p)
+    p.add_argument("--thresholds", type=float, nargs="+",
+                   default=(0.6, 0.8, 0.9))
+    p.add_argument("--min-size", type=int, default=100)
+    p.add_argument("--anisotropy", type=float, nargs=3, default=(1, 1, 1))
+    p.add_argument("--quiet", action="store_true")
+    p.set_defaults(fn=cmd_run)
+    return top
+
+
+def main(argv=None):
+    """Parse ``argv`` (default ``sys.argv[1:]``) and run the subcommand."""
+    args = build_parser().parse_args(argv)
+    if args.command == "predict":
+        if not (args.output or args.predigest_out):
+            raise SystemExit("predict needs --output or --predigest-out")
+        if args.output and args.predigest_out:
+            raise SystemExit(
+                "predict takes --output OR --predigest-out, not both"
+            )
+    if args.command == "segment":
+        if (args.plan is None) != (args.qaff is None):
+            raise SystemExit("--plan and --qaff must be given together")
+        if args.affinities and args.plan:
+            raise SystemExit(
+                "segment takes --affinities OR --plan/--qaff, not both"
+            )
+        if not (args.affinities or args.plan):
+            raise SystemExit(
+                "segment needs --affinities or --plan + --qaff"
+            )
+    if args.command == "run" and args.foreground:
+        raise SystemExit(
+            "run is the affinity->segmentation pipeline; foreground "
+            "output cannot feed segmentation (use `predict --foreground`)"
+        )
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

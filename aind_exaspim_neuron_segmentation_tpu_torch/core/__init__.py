@@ -13,4 +13,5 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (  # noqa:
     DEFAULT_PERCENTILES,
     clip_brightness,
     normalize,
+    streaming_percentile,
 )

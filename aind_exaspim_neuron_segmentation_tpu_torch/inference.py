@@ -11,6 +11,12 @@ skeletonize into a ZIP of SWC files. The sliding window runs on the device
 accumulator budget; slab boundaries recompute the overlapping patch rows,
 so every output voxel is final without host-side blending.
 
+Lazy chunked inputs (``io.read`` of a zarr / N5 store) stream slab by
+slab, and ``out_path`` streams every output into Zarr stores: the volume,
+its affinities or digests and its labels are never dense in host RAM
+(``predict`` -> ``affinities_to_segmentation`` ->
+``segmentation_to_zipped_swcs`` on store handles).
+
 Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 a CUDA request without a CUDA device raises, it never falls back.
 """
@@ -22,14 +28,23 @@ import numpy as np
 import torch
 
 from aind_exaspim_neuron_segmentation_tpu_torch import native, postprocess
+from aind_exaspim_neuron_segmentation_tpu_torch.core.device import (  # noqa: F401
+    resolve_device,  # (re-export)
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
     DEFAULT_PERCENTILES,
     normalize,
+    streaming_percentile,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     count_patches,  # noqa: F401  (re-export)
     generate_patch_starts,  # noqa: F401  (re-export)
     patch_grid_ranges,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.io import read
+from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
+    ZarrAppendWriter,
+    write_zarr,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
     fold_batchnorm,
@@ -43,18 +58,6 @@ from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
     predigest_slab,
 )
-
-
-def resolve_device(device=None):
-    """``torch.device`` for ``device`` (default ``cuda``); raises if CUDA
-    is requested and unavailable."""
-    device = torch.device("cuda" if device is None else device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA requested but torch.cuda.is_available() is False; pass "
-            "device='cpu' to run on the host"
-        )
-    return device
 
 
 class ModelRunner:
@@ -130,6 +133,20 @@ def to_tensor(arr, device=None):
     return t.to(resolve_device(device))
 
 
+class _Volume5DView:
+    """3D view over a lazy (1, 1, D, H, W) handle (AIND zarr layout)."""
+
+    def __init__(self, handle):
+        self.handle = handle
+        self.shape = tuple(handle.shape[2:])
+        self.ndim = 3
+
+    def __getitem__(self, key):
+        if not isinstance(key, tuple):
+            key = (key,)
+        return self.handle[(0, 0) + key]
+
+
 def _slab_plan(z_starts, patch_z, trim, dim_z, max_rows, stride=None):
     """Split z-start rows into slabs of <= max_rows owned rows.
 
@@ -197,9 +214,13 @@ def predict(
     overlapping patch grid, sigmoid, ``trim``-voxel border trim, and the
     hit-count blend (zero where never covered), as in the JAX package.
 
-    ``img``: in-memory (D, H, W) or (1, 1, D, H, W) array. ``model``: a
-    :class:`ModelRunner` (its device is where the work runs). Returns
-    float32 ``(3, D, H, W)`` in affinity mode else ``(D, H, W)``.
+    ``img``: (D, H, W) or (1, 1, D, H, W), in memory (numpy, a list, or a
+    tensor on any device) or a lazy chunked handle (``io.read`` of a zarr
+    / N5 store), which streams one Z slab at a time with the exact
+    :func:`~.core.normalize.streaming_percentile`: both give the same
+    numbers. ``model``: a :class:`ModelRunner` (its device is where the
+    work runs). Returns float32 ``(3, D, H, W)`` in affinity mode else
+    ``(D, H, W)``.
 
     ``max_slab_rows`` caps how many Z patch-rows are resident on the
     device at once (default: from a ~2 GiB per-slab accumulator budget);
@@ -213,22 +234,20 @@ def predict(
     (:mod:`.ops.predigest`, default thresholds low=0.1, high=0.9999) and
     return ``(plan uint8 (D, H, W), qaff uint8 (3, D, H, W))``.
 
-    ``out_path`` and lazy (chunked) inputs need the port's ``io/`` and
-    streaming percentile, which are not ported yet (ROADMAP.md, slice 4):
-    they raise ``NotImplementedError``.
+    ``out_path``: slab outputs stream into a Zarr store there as they
+    finish (at most one slab and one chunk row of the output in host
+    RAM) and the opened lazy handle is returned instead of an array.
+    With ``predigest`` it is ``(plan_path, qaff_path)``: the two digests
+    stream into two stores and the lazy pair is returned, which
+    :func:`affinities_to_segmentation` takes as it is.
     """
-    if out_path is not None:
-        raise NotImplementedError(
-            "out_path streaming needs the port's io/ (ROADMAP.md, slice 4)"
-        )
-    if not isinstance(img, (np.ndarray, list, tuple)):
-        raise NotImplementedError(
-            "lazy (chunked) inputs need the port's io/ and streaming "
-            "percentile (ROADMAP.md, slice 4); pass an in-memory array"
-        )
-    img = np.asarray(img)
+    lazy = not isinstance(img, (np.ndarray, torch.Tensor, list, tuple))
+    if isinstance(img, torch.Tensor):
+        img = img.detach().cpu().numpy()
+    elif not lazy:
+        img = np.asarray(img)
     if img.ndim == 5:
-        img = img[0, 0]
+        img = _Volume5DView(img) if lazy else img[0, 0]
     if img.ndim != 3:
         raise ValueError(f"expected 3D or 5D input, got shape {img.shape}")
 
@@ -241,23 +260,55 @@ def predict(
         )
     if predigest and not affinity_mode:
         raise ValueError("predigest requires affinity_mode=True")
+    if predigest and out_path is not None and (
+        not isinstance(out_path, (tuple, list)) or len(out_path) != 2
+    ):
+        raise ValueError(
+            "predigest streams TWO stores; pass "
+            "out_path=(plan_path, qaff_path)"
+        )
     if blend_mode not in ("uniform", "gaussian"):
         raise ValueError(f"unknown blend_mode {blend_mode!r}")
 
-    dim = img.shape
+    dim = tuple(img.shape)
     ranges = patch_grid_ranges(dim, patch_shape, overlap)
     if any(len(r) == 0 for r in ranges):
         # An axis shorter than the overlap yields an empty grid: no patch
-        # runs and the result is zeros.
+        # runs and the result is zeros. The out_path contract (stores
+        # written, lazy handles returned) still holds.
         if predigest:
-            return (np.zeros(dim, np.uint8),
-                    np.zeros((3,) + dim, np.uint8))
+            plan, qaff = (np.zeros(dim, np.uint8),
+                          np.zeros((3,) + dim, np.uint8))
+            if out_path is None:
+                return plan, qaff
+            write_zarr(out_path[0], plan)
+            write_zarr(out_path[1], qaff)
+            return read(out_path[0]), read(out_path[1])
         out = np.zeros((out_channels,) + dim, np.float32)
-        return out if affinity_mode else out[0]
+        out = out if affinity_mode else out[0]
+        if out_path is None:
+            return out
+        write_zarr(out_path, out)
+        return read(out_path)
 
-    img = np.minimum(img, brightness_clip)
-    img = normalize(img, percentiles=normalization_percentiles)
-    img = np.ascontiguousarray(img, dtype=np.float32)
+    if lazy:
+        mn, mx = streaming_percentile(
+            img, normalization_percentiles,
+            transform=lambda b: np.minimum(b, brightness_clip),
+        )
+
+        def load_slab(lo, hi):
+            block = np.minimum(np.asarray(img[lo:hi], np.float32),
+                               brightness_clip)
+            block = np.clip((block - mn) / (mx - mn + 1e-8), 0.0, 1.0)
+            return block.astype(np.float32)
+    else:
+        img = np.minimum(img, brightness_clip)
+        img = normalize(img, percentiles=normalization_percentiles)
+        img = np.ascontiguousarray(img, dtype=np.float32)
+
+        def load_slab(lo, hi):
+            return img[lo:hi]
 
     device = runner.device
     host_windows = windows = None
@@ -287,7 +338,16 @@ def predict(
         )
     z_starts = list(ranges[0])
     plans = _slab_plan(z_starts, patch_shape[0], trim, dim[0], max_slab_rows)
-    if predigest:
+    writers = None
+    if out_path is not None and predigest:
+        writers = (ZarrAppendWriter(out_path[0], dim, np.uint8),
+                   ZarrAppendWriter(out_path[1], (3,) + dim, np.uint8))
+    elif out_path is not None:
+        writers = (ZarrAppendWriter(
+            out_path, (out_channels,) + dim if affinity_mode else dim,
+            np.float32,
+        ),)
+    elif predigest:
         plan_out = np.zeros(dim, np.uint8)
         qaff_out = np.zeros((3,) + dim, np.uint8)
     else:
@@ -297,7 +357,13 @@ def predict(
         own_lo, own_hi, (copies, event) = entry
         if event is not None:
             event.synchronize()
-        if predigest:
+        if writers is not None:
+            blocks = [c.numpy() for c in copies]
+            if not affinity_mode:
+                blocks = [blocks[0][0]]
+            for writer, block in zip(writers, blocks):
+                writer.append(block)
+        elif predigest:
             plan_out[own_lo:own_hi] = copies[0].numpy()
             qaff_out[:, own_lo:own_hi] = copies[1].numpy()
         else:
@@ -316,7 +382,7 @@ def predict(
         # Pad with the REAL grid so the reflection anchors at the last
         # patch's tail segment.
         slab, _ = stitch.reflect_pad_to_grid(
-            img[in_lo:min(in_hi, dim[0])], patch_shape, overlap
+            load_slab(in_lo, min(in_hi, dim[0])), patch_shape, overlap
         )
         starts = [
             (z_starts[r] - in_lo, y, x)
@@ -361,6 +427,12 @@ def predict(
         pending = (own_lo, own_hi, copy)
     fetch(pending)
 
+    if writers is not None:
+        for writer in writers:
+            writer.close()
+        if predigest:
+            return read(out_path[0]), read(out_path[1])
+        return read(out_path)
     if predigest:
         return plan_out, qaff_out
     return out if affinity_mode else out[0]
@@ -393,6 +465,9 @@ def affinities_to_segmentation(
     aff_threshold_low=0.1,
     aff_threshold_high=0.9999,
     out_path=None,
+    tmp_dir=None,
+    verbose=False,
+    device=None,
 ):
     """Affinities -> instance segmentation, uint32 (D, H, W) on the host.
 
@@ -410,20 +485,32 @@ def affinities_to_segmentation(
       tensors: the host replays pure integer work, bit-identical to the
       float path on the volume they were digested from. The low/high
       thresholds are baked into the plan bytes, so non-default
-      ``aff_threshold_*`` with a pair raise ``ValueError``.
+      ``aff_threshold_*`` with a pair raise ``ValueError``;
+    * a lazy (zarr/N5) handle of float affinities, or a lazy
+      ``(plan, qaff)`` pair of store handles (``predict(...,
+      predigest=True, out_path=(p1, p2))``): the slab-streaming engine
+      (:func:`.postprocess.segment_streaming`) runs three Z-slab passes
+      with O(RAG + slab) host RAM, bit-identical to the dense path. Float
+      slabs are digested on ``device`` (default ``cuda``); a pair needs
+      no device.
 
-    Lazy (zarr/N5) handles, for affinities or for the pair, and
-    ``out_path`` streaming output need the port's ``io/`` and streaming
-    engine (ROADMAP.md, slice 4): a lazy handle raises
-    ``NotImplementedError``; ``out_path`` with dense input raises
-    ``ValueError``, as in the JAX package.
+    ``out_path`` (lazy input only; ``ValueError`` otherwise): stream the
+    labels into a Zarr store there and return the opened lazy handle.
+    ``tmp_dir``: where the streaming engine parks its temp spool files.
+    ``verbose``: the streaming engine's stage stamps on stderr.
     """
     predigested = isinstance(affinities, tuple) and len(affinities) == 2
     if _is_lazy(affinities[0] if predigested else affinities):
-        raise NotImplementedError(
-            "lazy (chunked) affinity handles need the port's io/ and "
-            "streaming segmentation (ROADMAP.md, slice 4); pass dense "
-            "affinities or the (plan, qaff) pair"
+        return postprocess.segment_streaming(
+            affinities,
+            agglomeration_thresholds=agglomeration_thresholds,
+            min_segment_size=min_segment_size,
+            aff_threshold_low=aff_threshold_low,
+            aff_threshold_high=aff_threshold_high,
+            out_path=out_path,
+            tmp_dir=tmp_dir,
+            verbose=verbose,
+            device=device,
         )
     if out_path is not None:
         raise ValueError(
@@ -458,7 +545,13 @@ def skeletonize(segmentation, anisotropy=(1.0, 1.0, 1.0)):
     """Segmentation -> ``{segment_id: Skeleton}`` via TEASAR, with the
     reference's kimimaro parameters: scale 1.25, const 450, pdrf exponent
     4 and scale 100000, soma detection / acceptance 1000 / 3500, soma
-    invalidation 1.0 / 300, fix_borders, fill_holes, one thread."""
+    invalidation 1.0 / 300, fix_borders, fill_holes, one thread.
+
+    ``segmentation`` is a dense uint32 volume or a lazy (zarr/N5) label
+    handle, e.g. from ``affinities_to_segmentation(..., out_path=...)``,
+    which streams through per-label bounding-box crops
+    (:func:`.postprocess.skeleton.skeletonize_lazy`) with the same
+    output, so the zarr -> SWC pipeline never densifies the volume."""
     return postprocess.skeletonize(
         segmentation,
         scale=1.25,
@@ -483,8 +576,8 @@ def skeletons_to_zipped_swcs(skeletons, zip_path):
 
 
 def segmentation_to_zipped_swcs(segmentation, zip_path, anisotropy=(1, 1, 1)):
-    """Segmentation -> TEASAR skeletons -> zipped SWC archive; returns the
-    skeletons."""
+    """Segmentation (dense or a lazy label handle, see :func:`skeletonize`)
+    -> TEASAR skeletons -> zipped SWC archive; returns the skeletons."""
     skeletons = skeletonize(segmentation, anisotropy=anisotropy)
     skeletons_to_zipped_swcs(skeletons, zip_path)
     return skeletons

@@ -1,8 +1,10 @@
-"""ctypes bindings over the port's C++ engine (the dense inference tail).
+"""ctypes bindings over the port's C++ engine.
 
 Watershed, agglomeration and the label remaps that the reference takes
-from waterz and fastremap, compiled at first use by :mod:`.build`. Every
-function takes and returns numpy arrays on the host.
+from waterz and fastremap, the slab-streaming segmenter
+(:class:`StreamSegmenter`), and the codecs behind ``io`` (Blosc1, raw
+zstd, CRC-32C, JPEG), compiled at first use by :mod:`.build`. Every
+function takes and returns numpy arrays or bytes on the host.
 """
 
 import ctypes
@@ -51,6 +53,62 @@ def _lib():
                 u8p, u8p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 f32p, ctypes.c_int64, ctypes.c_int32, u32p,
             ]
+        lib.exa_streamseg_new.restype = ctypes.c_void_p
+        lib.exa_streamseg_new.argtypes = [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_free.restype = None
+        lib.exa_streamseg_free.argtypes = [ctypes.c_void_p]
+        lib.exa_streamseg_feed.restype = ctypes.c_int64
+        lib.exa_streamseg_feed.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_int64, u32p,
+        ]
+        lib.exa_streamseg_fragments_done.restype = ctypes.c_int64
+        lib.exa_streamseg_fragments_done.argtypes = [ctypes.c_void_p]
+        lib.exa_streamseg_rag_feed.restype = ctypes.c_int64
+        lib.exa_streamseg_rag_feed.argtypes = [
+            ctypes.c_void_p, u32p, u8p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_merge.restype = ctypes.c_int64
+        lib.exa_streamseg_merge.argtypes = [
+            ctypes.c_void_p, f32p, ctypes.c_int64, ctypes.c_int32,
+            ctypes.c_int64,
+        ]
+        lib.exa_streamseg_map.restype = ctypes.c_int64
+        lib.exa_streamseg_map.argtypes = [
+            ctypes.c_void_p, u32p, ctypes.c_int64, u32p,
+        ]
+        lib.exa_blosc_info.restype = ctypes.c_int64
+        lib.exa_blosc_info.argtypes = [u8p, ctypes.c_int64, i64p]
+        lib.exa_blosc_decompress.restype = ctypes.c_int64
+        lib.exa_blosc_decompress.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int64,
+        ]
+        lib.exa_blosc_compress.restype = ctypes.c_int64
+        lib.exa_blosc_compress.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int32, ctypes.c_int32,
+            u8p, ctypes.c_int64,
+        ]
+        lib.exa_have_zstd.restype = ctypes.c_int32
+        lib.exa_have_zstd.argtypes = []
+        lib.exa_zstd_decompress.restype = ctypes.c_int64
+        lib.exa_zstd_decompress.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int64,
+        ]
+        lib.exa_zstd_compress.restype = ctypes.c_int64
+        lib.exa_zstd_compress.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int32,
+        ]
+        lib.exa_crc32c.restype = ctypes.c_uint32
+        lib.exa_crc32c.argtypes = [u8p, ctypes.c_int64]
+        lib.exa_jpeg_info.restype = ctypes.c_int64
+        lib.exa_jpeg_info.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int64, i64p,
+        ]
+        lib.exa_jpeg_decode.restype = ctypes.c_int64
+        lib.exa_jpeg_decode.argtypes = [
+            u8p, ctypes.c_int64, u8p, ctypes.c_int64, ctypes.c_int32, u8p,
+        ]
         lib._exa_bound = True
     return lib
 
@@ -237,3 +295,260 @@ def agglomerate_all(affinities, thresholds, aff_threshold_low=0.1,
     if k < 0:
         raise RuntimeError("agglomeration failed")
     return out
+
+
+# --- codecs behind io (Blosc1, raw zstd, CRC-32C, JPEG) ---
+
+_NO_ZSTD = -7  # blosc_lite.cpp kErrNoZstd
+
+_BLOSC_ERRORS = {
+    -1: "truncated blosc chunk",
+    -2: "destination buffer too small",
+    -3: "corrupt blosc chunk",
+    -4: "unsupported blosc inner codec (snappy)",
+    -5: "blosc bit-shuffle decode error",
+    -6: "unsupported blosc format version",
+}
+
+
+def have_zstd():
+    """True when the engine was built against the system zstd (the build
+    found ``<zstd.h>``); else zstd streams raise ``RuntimeError``."""
+    return bool(_lib().exa_have_zstd())
+
+
+def _zstd_missing():
+    return RuntimeError(
+        "this build of the port's engine has no zstd: <zstd.h> and -lzstd "
+        "were not found when it was compiled (native/build.py), so zstd "
+        "streams cannot be read or written; lz4, blosclz and zlib work"
+    )
+
+
+def _src(data):
+    """(ctypes buffer, length) of ``data``; never a zero-length buffer."""
+    data = bytes(data)
+    return (ctypes.c_uint8 * max(len(data), 1)).from_buffer_copy(
+        data or b"\0"
+    ), len(data)
+
+
+def blosc_decompress(data):
+    """Decode one Blosc1 chunk (the numcodecs.Blosc frame) to bytes.
+
+    Inner codecs lz4/lz4hc, blosclz, zlib and (with :func:`have_zstd`)
+    zstd; byte and bit shuffle; memcpyed chunks.
+    """
+    lib = _lib()
+    src, n = _src(data)
+    info = (ctypes.c_int64 * 6)()
+    rc = lib.exa_blosc_info(src, n, info)
+    if rc < 0:
+        raise ValueError(_BLOSC_ERRORS.get(rc, f"blosc error {rc}"))
+    nbytes = int(info[0])
+    out = np.empty(nbytes, np.uint8)
+    rc = lib.exa_blosc_decompress(src, n, _u8p(out), nbytes)
+    if rc == _NO_ZSTD:
+        raise _zstd_missing()
+    if rc < 0:
+        raise ValueError(_BLOSC_ERRORS.get(rc, f"blosc error {rc}"))
+    return out.tobytes()
+
+
+def blosc_compress(data, typesize=1, shuffle=1):
+    """Encode bytes as a Blosc1 chunk (inner LZ4, optional shuffle).
+
+    ``shuffle``: numcodecs.Blosc codes -- 0 = none, 1 = byte shuffle,
+    2 = bit shuffle. The output decodes under libblosc and under
+    :func:`blosc_decompress`.
+    """
+    if shuffle not in (0, 1, 2):
+        raise ValueError("shuffle must be 0 (none), 1 (byte), 2 (bit)")
+    lib = _lib()
+    src, n = _src(data)
+    blocksize = min(n, 1 << 20) or 1
+    nblocks = -(-n // blocksize) if n else 0
+    cap = n + 16 + 8 * max(nblocks, 1) + 64
+    out = np.empty(cap, np.uint8)
+    rc = lib.exa_blosc_compress(src, n, typesize, shuffle, _u8p(out), cap)
+    if rc < 0:
+        raise ValueError(_BLOSC_ERRORS.get(rc, f"blosc error {rc}"))
+    return out[:rc].tobytes()
+
+
+def zstd_decompress(data, expected_size):
+    """Raw zstd frame decode (zarr v3 'zstd' codec)."""
+    lib = _lib()
+    src, n = _src(data)
+    out = np.empty(expected_size, np.uint8)
+    rc = lib.exa_zstd_decompress(src, n, _u8p(out), expected_size)
+    if rc == _NO_ZSTD:
+        raise _zstd_missing()
+    if rc < 0:
+        raise ValueError("corrupt zstd frame")
+    return out[:rc].tobytes()
+
+
+def zstd_compress(data, level=5):
+    """Raw zstd frame encode (zarr v3 'zstd' codec)."""
+    lib = _lib()
+    src, n = _src(data)
+    cap = n + n // 2 + 256
+    out = np.empty(cap, np.uint8)
+    rc = lib.exa_zstd_compress(src, n, _u8p(out), cap, level)
+    if rc == _NO_ZSTD:
+        raise _zstd_missing()
+    if rc < 0:
+        raise ValueError("zstd compression failed")
+    return out[:rc].tobytes()
+
+
+def crc32c(data):
+    """CRC-32C (Castagnoli) checksum -- zarr v3 'crc32c' codec."""
+    src, n = _src(data)
+    return int(_lib().exa_crc32c(src, n))
+
+
+_JPEG_ERRORS = {
+    -1: "malformed JPEG stream",
+    -2: "unsupported JPEG mode (arithmetic/lossless/hierarchical)",
+    -3: "unsupported JPEG precision (only 8- and 12-bit)",
+    -4: "unsupported JPEG component count or sampling factors",
+    -5: "JPEG scan references a missing quantization/Huffman table",
+    -6: "truncated or corrupt JPEG entropy data",
+    -7: "JPEG restart-marker desynchronization",
+}
+
+
+def jpeg_decode(data, tables=None, color_transform=-1):
+    """Decode a sequential or progressive JPEG stream to a ``(H, W)``
+    or ``(H, W, C)`` array: uint8 for 8-bit streams, uint16 for 12-bit.
+
+    The decoder behind compression-7 TIFF pages (:mod:`..io.tiff_lite`).
+    ``tables`` is a TIFF ``JPEGTables`` (tag 347) abbreviated stream
+    holding shared DQT/DHT segments; ``color_transform`` is 1 for
+    YCbCr->RGB, 0 to emit stored component values, -1 to auto-detect
+    (3-component streams convert).
+    """
+    lib = _lib()
+    src, n = _src(data)
+    if tables:
+        tab, ntab = _src(tables)
+    else:
+        tab, ntab = None, 0
+    info = (ctypes.c_int64 * 4)()
+    rc = lib.exa_jpeg_info(src, n, tab, ntab, info)
+    if rc < 0:
+        raise ValueError(_JPEG_ERRORS.get(rc, f"JPEG error {rc}"))
+    h, w, ncomp = int(info[0]), int(info[1]), int(info[2])
+    dtype = np.uint16 if int(info[3]) > 8 else np.uint8
+    out = np.empty(h * w * ncomp, dtype)
+    rc = lib.exa_jpeg_decode(src, n, tab, ntab, color_transform, _u8p(out))
+    if rc < 0:
+        raise ValueError(_JPEG_ERRORS.get(rc, f"JPEG error {rc}"))
+    return out.reshape((h, w) if ncomp == 1 else (h, w, ncomp))
+
+
+# --- slab-streaming segmentation ---
+
+
+class StreamSegmenter:
+    """Slab-streaming watershed + agglomeration (C++ ``streamseg.cpp``).
+
+    The beyond-RAM counterpart of :func:`agglomerate_last_pre`: slabs of
+    digest bytes (:mod:`..ops.predigest`) stream in, provisional fragment
+    labels stream out (parked by the caller, e.g. in a temp file), then
+    the RAG streams through the shared merge loop and slabs relabel
+    through one lut. Peak host RAM is O(RAG + slab) instead of
+    O(volume). Output is bit-identical to the dense engine, including
+    the min-size filter and the first-appearance renumber.
+
+    Call order: ``feed`` per slab (ascending Z, exact cover) ->
+    ``fragments_done`` -> ``rag_feed`` per slab -> ``merge`` ->
+    ``map`` per slab.
+    """
+
+    def __init__(self, shape):
+        self._h = None  # __del__ runs even when _lib() raises below
+        d, h, w = (int(v) for v in shape)
+        self._lib = _lib()
+        self._h = self._lib.exa_streamseg_new(d, h, w)
+        if not self._h:
+            raise ValueError(f"bad streamseg shape {shape}")
+        self.shape = (d, h, w)
+        self.n_fragments = None
+        self.n_segments = None
+
+    def close(self):
+        """Free the native handle (idempotent; also runs on GC/exit)."""
+        if self._h:
+            self._lib.exa_streamseg_free(self._h)
+            self._h = None
+
+    def __del__(self):
+        self.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def feed(self, plan_slab):
+        """Watershed one (nz, H, W) uint8 plan slab -> provisional labels."""
+        plan = np.ascontiguousarray(plan_slab, dtype=np.uint8)
+        out = np.empty(plan.shape, np.uint32)
+        rc = self._lib.exa_streamseg_feed(
+            self._h, _u8p(plan), plan.shape[0], _u32(out.ravel())
+        )
+        if rc < 0:
+            raise RuntimeError("streamseg feed failed (order/extent)")
+        return out
+
+    def fragments_done(self):
+        """Stitch pieces across slabs; returns the fragment count K."""
+        k = self._lib.exa_streamseg_fragments_done(self._h)
+        if k < 0:
+            raise RuntimeError("streamseg fragment finalize failed")
+        self.n_fragments = int(k)
+        return self.n_fragments
+
+    def rag_feed(self, frag_slab, qaff_slab):
+        """Stream (nz, H, W) provisional labels + (nz, 3, H, W) u8 affs."""
+        frag = np.ascontiguousarray(frag_slab, dtype=np.uint32)
+        qaff = np.ascontiguousarray(qaff_slab, dtype=np.uint8)
+        if qaff.shape != (frag.shape[0], 3) + frag.shape[1:]:
+            raise ValueError(
+                f"qaff slab {qaff.shape} does not match frag {frag.shape}"
+            )
+        rc = self._lib.exa_streamseg_rag_feed(
+            self._h, _u32(frag.ravel()), _u8p(qaff), frag.shape[0]
+        )
+        if rc < 0:
+            raise RuntimeError("streamseg rag feed failed (order/extent)")
+
+    def merge(self, thresholds, quantile_pct=85, min_segment_size=0):
+        """Merge loop + min-size filter; returns the segment count."""
+        th = np.ascontiguousarray(thresholds, dtype=np.float32)
+        n = self._lib.exa_streamseg_merge(
+            self._h, _f32(th), len(th), quantile_pct,
+            int(min_segment_size),
+        )
+        if n < 0:
+            raise RuntimeError(
+                "streamseg merge failed (thresholds must be non-empty "
+                "ascending; all slabs must have been rag-fed)"
+            )
+        self.n_segments = int(n)
+        return self.n_segments
+
+    def map(self, frag_slab):
+        """Relabel provisional labels through the final lut."""
+        frag = np.ascontiguousarray(frag_slab, dtype=np.uint32)
+        out = np.empty(frag.shape, np.uint32)
+        rc = self._lib.exa_streamseg_map(
+            self._h, _u32(frag.ravel()), frag.size, _u32(out.ravel())
+        )
+        if rc < 0:
+            raise RuntimeError("streamseg map before merge")
+        return out

@@ -13,10 +13,18 @@ digests the host watershed and agglomeration consume:
 The bytes equal the JAX package's ``ops/predigest.py::predigest_slab`` on
 the same float input. A voxel in the first plane of a slab needs the
 previous slab's last z-affinity plane for its incoming -z candidate;
-callers thread it through ``prev_plane``.
+callers thread it through ``prev_plane``. :func:`predigest` digests a
+whole in-memory volume and :func:`predigest_streaming` a lazy (zarr/N5)
+handle slab by slab (:func:`predigest_slabs`), all on ``device``
+(default ``cuda``).
 """
 
+import numpy as np
 import torch
+
+from aind_exaspim_neuron_segmentation_tpu_torch.core.device import (
+    resolve_device,
+)
 
 
 def predigest_slab(aff, prev_plane=None, *, first_slab=True,
@@ -71,4 +79,82 @@ def predigest_slab(aff, prev_plane=None, *, first_slab=True,
     )
     plan = flags | (dirs << 3)
     qaff = torch.clamp(aff * 256.0, 0.0, 255.0).to(torch.uint8)
+    return plan, qaff
+
+
+def predigest(aff, low=0.1, high=0.9999, device=None):
+    """Digest a whole in-memory affinity volume; returns numpy arrays.
+
+    ``aff``: float32 (3, D, H, W), numpy or a tensor on any device; it is
+    digested on ``device`` (default ``cuda``) as one slab (first and
+    last) of :func:`predigest_slab`.
+    """
+    dev = resolve_device(device)
+    if not isinstance(aff, torch.Tensor):
+        aff = torch.from_numpy(np.ascontiguousarray(aff, np.float32))
+    plan, qaff = predigest_slab(
+        aff.to(dev, torch.float32), first_slab=True, last_slab=True,
+        low=low, high=high,
+    )
+    return plan.cpu().numpy(), qaff.cpu().numpy()
+
+
+def default_slab_planes(h, w):
+    """Z planes per digest slab: ~512 MB of f32 (3, nz, h, w) on device."""
+    return max(int(512 * 1024**2 // (3 * h * w * 4)), 1)
+
+
+def predigest_slabs(aff, low=0.1, high=0.9999, slab_planes=None,
+                    device=None):
+    """Iterator of ``(lo, hi, plan, qaff)`` over Z slabs of a lazy handle.
+
+    ``aff``: any chunked reader of shape (3, D, H, W). Each slab
+    ``[lo, hi)`` is read as float32, digested on ``device`` (default
+    ``cuda``) and yielded as device tensors; the previous slab's last
+    z-affinity plane is threaded through for the -z steepest candidate,
+    so the slabs together equal :func:`predigest` of the dense volume
+    byte for byte. ``slab_planes``: Z planes per slab (default
+    :func:`default_slab_planes`). The shape and the device are checked
+    at the call, before the first slab is read.
+    """
+    if aff.ndim != 4 or aff.shape[0] != 3:
+        raise ValueError(f"expected (3, D, H, W) handle, got {aff.shape}")
+    dev = resolve_device(device)
+    _, d, h, w = aff.shape
+    if slab_planes is None:
+        slab_planes = default_slab_planes(h, w)
+
+    def slabs():
+        prev = None
+        for lo in range(0, d, slab_planes):
+            hi = min(lo + slab_planes, d)
+            block = torch.from_numpy(
+                np.ascontiguousarray(aff[:, lo:hi], dtype=np.float32)
+            ).to(dev)
+            plan, qaff = predigest_slab(
+                block, prev, first_slab=(lo == 0), last_slab=(hi == d),
+                low=low, high=high,
+            )
+            prev = block[0, -1]
+            yield lo, hi, plan, qaff
+
+    return slabs()
+
+
+def predigest_streaming(aff, low=0.1, high=0.9999, slab_planes=None,
+                        device=None):
+    """Digest a lazy (zarr/N5) affinity handle in Z slabs on ``device``.
+
+    The float volume is never dense on the host or the device: one f32
+    slab on the device plus the 4-bytes/voxel numpy digest outputs bound
+    the memory. Equals :func:`predigest` of the dense volume byte for
+    byte (:func:`predigest_slabs`).
+    """
+    slabs = predigest_slabs(aff, low, high, slab_planes, device)
+    _, d, h, w = aff.shape
+    plan = np.empty((d, h, w), np.uint8)
+    qaff = np.empty((3, d, h, w), np.uint8)
+    for lo, hi, p, q in slabs:
+        plan[lo:hi] = p.cpu().numpy()
+        qaff[:, lo:hi] = q.cpu().numpy()
     return plan, qaff

@@ -6,7 +6,10 @@ reference's external-dependency call sites:
 * :func:`agglomerate` -- ``waterz.agglomerate``, a generator;
 * :func:`remove_small_segments` -- the reference's min-size filter over
   the ``fastremap``-like ``unique`` / ``mask_except`` / ``renumber``;
-* :func:`skeletonize` -- ``kimimaro.skeletonize``.
+* :func:`skeletonize` -- ``kimimaro.skeletonize`` (dense arrays and lazy
+  label handles);
+* :func:`segment_streaming` -- the beyond-RAM segmentation of a lazy
+  affinity handle or digest-store pair (:mod:`.streaming`).
 """
 
 import numpy as np
@@ -20,6 +23,9 @@ from aind_exaspim_neuron_segmentation_tpu_torch.native import (  # noqa: F401
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.postprocess.skeleton import (  # noqa: F401
     skeletonize,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.postprocess.streaming import (  # noqa: F401
+    segment_streaming,
 )
 
 

@@ -4,7 +4,9 @@ Plays the role of kimimaro's ``Skeleton`` at the reference call sites:
 ``.vertices`` (N, 3) in physical units (index * anisotropy, so voxel
 coordinates when anisotropy is (1, 1, 1), which ``voxelize_skeletons``
 assumes) and ``.to_swc()`` giving the text written into the ZIP archive.
-The TEASAR engine is the port's C++ (``native/src/teasar.cpp``).
+The TEASAR engine is the port's C++ (``native/src/teasar.cpp``); a lazy
+(zarr/N5) label handle streams through per-label bounding-box crops
+(:func:`skeletonize_lazy`) with the same output.
 """
 
 import ctypes
@@ -99,6 +101,18 @@ def _bind(lib):
         u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, f64p,
         ctypes.c_int32, ctypes.c_int32,
     ]
+    lib.exa_skeletonize_crop.restype = ctypes.c_void_p
+    lib.exa_skeletonize_crop.argtypes = [
+        u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_uint32, f64p, ctypes.c_int32, ctypes.c_int32,
+    ]
+    lib.exa_label_bboxes.restype = ctypes.c_int64
+    lib.exa_label_bboxes.argtypes = [
+        u32p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int64, ctypes.c_int64, i64p, i64p,
+    ]
     lib.exa_skel_count.restype = ctypes.c_int64
     lib.exa_skel_count.argtypes = [ctypes.c_void_p]
     lib.exa_skel_label.restype = ctypes.c_uint32
@@ -131,21 +145,30 @@ def skeletonize(
     fix_borders=True,
     fill_holes=True,
 ):
-    """TEASAR-skeletonize every labeled segment of a dense volume.
+    """TEASAR-skeletonize every labeled segment.
 
     Parameter names and defaults mirror the kimimaro call of the
     reference, which runs one thread (``parallel=1``). Returns
     ``{segment_id: Skeleton}``; a segment with several connected components
     gives one merged Skeleton (vertices concatenated), as kimimaro does.
-    ``segmentation`` is an array-like (numpy, a CPU tensor, a list); a
-    lazy chunked handle raises ``NotImplementedError``.
+    ``segmentation`` is an array-like (numpy, a CPU tensor, a list) or a
+    lazy chunked handle (``io.LazyArray``), which streams through
+    :func:`skeletonize_lazy`.
     """
+    # Lazy chunked handles (no dense conversion, chunk reads) stream
+    # through the crop engine; anything array-like densifies.
     if not isinstance(
         segmentation, (np.ndarray, list, tuple)
     ) and not hasattr(segmentation, "__array__"):
-        raise NotImplementedError(
-            "lazy (chunked) label handles need the port's io/ and "
-            "skeletonize_lazy (ROADMAP.md, slice 4); pass a dense array"
+        return skeletonize_lazy(
+            segmentation, scale=scale, const=const,
+            pdrf_exponent=pdrf_exponent, pdrf_scale=pdrf_scale,
+            soma_detection_threshold=soma_detection_threshold,
+            soma_acceptance_threshold=soma_acceptance_threshold,
+            soma_invalidation_scale=soma_invalidation_scale,
+            soma_invalidation_const=soma_invalidation_const,
+            anisotropy=anisotropy, fix_borders=fix_borders,
+            fill_holes=fill_holes,
         )
     seg = np.ascontiguousarray(segmentation, dtype=np.uint32)
     if seg.ndim != 3:
@@ -186,10 +209,11 @@ def _params_array(scale, const, pdrf_exponent, pdrf_scale,
     )
 
 
-def _collect_pieces(lib, handle):
+def _collect_pieces(lib, handle, pieces=None):
     if not handle:
         raise RuntimeError("skeletonization failed")
-    pieces = {}
+    if pieces is None:
+        pieces = {}
     try:
         for i in range(lib.exa_skel_count(handle)):
             label = int(lib.exa_skel_label(handle, i))
@@ -227,3 +251,119 @@ def _merge_pieces(pieces):
             edges=np.concatenate(edges),
         )
     return skeletons
+
+
+def skeletonize_lazy(
+    labels,
+    scale=1.25,
+    const=450,
+    pdrf_exponent=4,
+    pdrf_scale=100000,
+    soma_detection_threshold=1000,
+    soma_acceptance_threshold=3500,
+    soma_invalidation_scale=1.0,
+    soma_invalidation_const=300,
+    anisotropy=(1.0, 1.0, 1.0),
+    fix_borders=True,
+    fill_holes=True,
+    slab_planes=64,
+):
+    """TEASAR-skeletonize a lazy (zarr/N5) label handle beyond RAM.
+
+    Two streaming passes over the (D, H, W) uint32 store: a Z-slab
+    discovery pass collects per-label bounding boxes (native
+    ``exa_label_bboxes``), then each label's 1-voxel-padded bbox crop
+    is read back and skeletonized in isolation
+    (``exa_skeletonize_crop``). The pad guarantees a label only touches
+    crop faces where it touches true volume faces, so EDT, fix_borders,
+    black_border, and fill_holes semantics -- and therefore the output
+    -- are bit-identical to the dense engine. Peak host RAM is one slab
+    plus the largest single label's bbox crop, never the full volume.
+    """
+    if labels.ndim != 3:
+        raise ValueError(f"expected 3D label handle, got {labels.shape}")
+    bbox, counts, gmin, gmax = bbox_scan(labels, slab_planes)
+    params = _params_array(
+        scale, const, pdrf_exponent, pdrf_scale,
+        soma_detection_threshold, soma_acceptance_threshold,
+        soma_invalidation_scale, soma_invalidation_const, anisotropy,
+        black_border=(gmin == gmax),
+    )
+    labs = [lab for lab in range(1, len(counts)) if counts[lab]]
+    return _merge_pieces(
+        crop_pass(labels, labs, bbox, params, fix_borders, fill_holes)
+    )
+
+
+def bbox_scan(labels, slab_planes=64):
+    """Slab-streamed per-label bbox discovery over the whole label store.
+
+    Returns ``(bbox, counts, gmin, gmax)``: ``bbox`` is
+    ``(n_labels + 1, 6)`` int64 with mins in columns 0/2/4
+    (INT64_MAX when unseen) and maxs in columns 1/3/5 (-1 unseen),
+    ``counts`` the per-label voxel counts, ``gmin`` / ``gmax`` the
+    smallest and largest label.
+    """
+    d, h, w = labels.shape
+    lib = _bind(build.load())
+    i64p = ctypes.POINTER(ctypes.c_int64)
+    n_labels = 0
+    bbox = np.empty((1, 6), np.int64)
+    bbox[:, 0::2] = np.iinfo(np.int64).max
+    bbox[:, 1::2] = -1
+    counts = np.zeros(1, np.int64)
+    gmin, gmax = None, None
+    for lo in range(0, d, slab_planes):
+        hi = min(lo + slab_planes, d)
+        slab = np.ascontiguousarray(labels[lo:hi], dtype=np.uint32)
+        smax = int(slab.max())
+        gmin = int(slab.min()) if gmin is None else min(gmin, int(slab.min()))
+        gmax = smax if gmax is None else max(gmax, smax)
+        if smax > n_labels:
+            grow = np.empty((smax - n_labels, 6), np.int64)
+            grow[:, 0::2] = np.iinfo(np.int64).max
+            grow[:, 1::2] = -1
+            bbox = np.concatenate([bbox, grow])
+            counts = np.concatenate(
+                [counts, np.zeros(smax - n_labels, np.int64)]
+            )
+            n_labels = smax
+        rc = lib.exa_label_bboxes(
+            slab.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            hi - lo, h, w, lo, n_labels,
+            bbox.ctypes.data_as(i64p), counts.ctypes.data_as(i64p),
+        )
+        if rc < 0:
+            raise RuntimeError("label bbox scan failed")
+    return bbox, counts, gmin, gmax
+
+
+def crop_pass(labels, labs, bbox, params, fix_borders, fill_holes):
+    """Skeletonize each label in ``labs`` from its 1-voxel-padded bbox
+    crop of the (lazy) label store; returns the raw pieces dict (label
+    -> [(verts, radii, edges), ...]) for :func:`_merge_pieces`.
+
+    The pad guarantees a label only touches crop faces where it touches
+    true volume faces, so the output is bit-identical to the dense
+    engine and independent of which process runs which label.
+    """
+    d, h, w = labels.shape
+    lib = _bind(build.load())
+    pieces = {}
+    for lab in labs:
+        z0, z1, y0, y1, x0, x1 = bbox[lab]
+        z0, y0, x0 = max(z0 - 1, 0), max(y0 - 1, 0), max(x0 - 1, 0)
+        z1, y1, x1 = min(z1 + 2, d), min(y1 + 2, h), min(x1 + 2, w)
+        crop = np.ascontiguousarray(
+            labels[z0:z1, y0:y1, x0:x1], dtype=np.uint32
+        )
+        handle = lib.exa_skeletonize_crop(
+            crop.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+            z1 - z0, y1 - y0, x1 - x0, z0, y0, x0, d, h, w,
+            lab,
+            params.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+            1 if fix_borders else 0,
+            1 if fill_holes else 0,
+        )
+        _collect_pieces(lib, handle, pieces)
+    return pieces

@@ -41,8 +41,28 @@ Phases (any failure raises, and the script exits non-zero):
    exactly the ids, with the stage times; then a 128^3 crop of phase
    4's float affinities digested on the card, whose pair labels equal
    its float labels bit for bit;
-8. one ``{"kernels": [...]}`` line, the card line, and as the last line
-   ``{"ok": true, "device": {...}}``.
+8. the io build: whether the engine (now with the codecs and the
+   streaming segmenter) got the system zstd (``exa_have_zstd``, a missing
+   zstd is printed, never a failure), phase 5's build time, and a blosc
+   round trip;
+9. the lazy main path at full width: phase 4's volume written to a zarr
+   v2 store with ``blosc`` (lz4, byte shuffle), opened with ``io.read``
+   and run through ``predict(predigest=True, out_path=(plan, qaff))`` with
+   K1's launches counted around it; ``streaming_percentile`` printed
+   beside ``np.percentile`` (equal, or the phase fails); the stores equal
+   phase 4's in-RAM digest pair; the streaming segmentation of the store
+   pair (``out_path``, stage stamps on stderr) equals phase 7's labels;
+10. the lazy float path: phase 7's 128^3 crop of float affinities as a
+    zarr store, digested on the card inside ``segment_streaming``, equals
+    the crop's dense labels;
+11. lazy TEASAR: phase 6's 32-tube labels as a zarr store give the same 32
+    zip entries, byte for byte, as phase 6's dense zip;
+12. the CLI: ``python -m aind_exaspim_neuron_segmentation_tpu_torch run``
+    in a subprocess (no ``--device``) on a 128^3 crop of the volume at
+    full width with phase 4's checkpoint; its ``segmentation.zarr`` and
+    zip entries equal the library path on the same lazy handle;
+13. one ``{"kernels": [...]}`` line, the card line, and as the last line
+    ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -425,7 +445,7 @@ def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
     # moves the MAE to the order of the affinities' spread (std ~0.09)
     check(mae <= 5e-3 and max_abs <= 0.15,
           f"bf16 vs float32 MAE {mae} > 5e-3 or max abs {max_abs} > 0.15")
-    return runner, vol, launches, aff, (plan, qaff), t_dig
+    return runner, vol, launches, aff, (plan, qaff), t_dig, ckpt
 
 
 def profile_predict(inference, runner, vol):
@@ -496,10 +516,12 @@ def phase_tail_build(card):
     t0 = time.perf_counter()
     path = build.rebuild()
     build.load()
+    t_build = time.perf_counter() - t0
     check(build.loaded_path() == path, "engine loaded from another path")
     print(f"tail build: engine built and loaded in "
-          f"{time.perf_counter() - t0:.1f} s ({os.path.basename(path)}) "
+          f"{t_build:.1f} s ({os.path.basename(path)}) "
           f"[{card}; {os.cpu_count()} CPUs]")
+    return t_build
 
 
 def tube_labels(shape=(256, 256, 256), n=32, radius=4, seed=0):
@@ -588,6 +610,7 @@ def phase_tail_known(inference, predigest_slab, affinity_channels, card,
           f"float {t_float:.3f} s, skeletonize + zip {t_skel:.3f} s; pair "
           f"== float == tubes renumbered, 32 SWC entries, vertices inside "
           f"their segments [{card}; {os.cpu_count()} CPUs]")
+    return seg, zip_path
 
 
 def phase_tail_main(inference, predigest_slab, aff, pair, t_predict, card,
@@ -641,6 +664,165 @@ def phase_tail_main(inference, predigest_slab, aff, pair, t_predict, card,
           f"{t_dig:.3f} s, segment pair {t_pair:.3f} s, float "
           f"{t_float:.3f} s, {int(seg_p.max())} segments, pair == float "
           f"[{card}; {os.cpu_count()} CPUs]")
+    return seg, crop, seg_f
+
+
+def zip_entries(path):
+    """{name: bytes} of every entry of a zip."""
+    with zipfile.ZipFile(path) as zf:
+        return {n: zf.read(n) for n in zf.namelist()}
+
+
+def write_blosc_zarr(io, path, arr, chunks):
+    """``arr`` as a zarr v2 store with AIND's production codec (blosc, lz4,
+    byte shuffle); returns the seconds the write took."""
+    t0 = time.perf_counter()
+    io.write_zarr(path, arr, chunks=chunks, compressor={
+        "id": "blosc", "cname": "lz4", "clevel": 5, "shuffle": 1})
+    return time.perf_counter() - t0
+
+
+def phase_io_build(native, t_build, where):
+    """Which codecs the engine built in phase 5 has (zstd or not, printed,
+    never a failure), and a blosc round trip of a uint16 chunk."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.native import build
+
+    raw = np.random.default_rng(2).integers(
+        0, 1500, (64, 128, 128), dtype=np.uint16).tobytes()
+    t0 = time.perf_counter()
+    chunk = native.blosc_compress(raw, typesize=2, shuffle=1)
+    back = native.blosc_decompress(chunk)
+    t_codec = time.perf_counter() - t0
+    check(back == raw, "blosc round trip differs")
+    zstd = native.have_zstd()
+    print(f"io build: engine of {len(build.sources())} sources built in "
+          f"{t_build:.1f} s (phase 5); system zstd "
+          f"{'linked' if zstd else 'absent (zstd streams raise)'} "
+          f"(exa_have_zstd {int(zstd)}); blosc lz4 round trip "
+          f"of a 2 MiB uint16 chunk {t_codec:.3f} s, ratio "
+          f"{len(raw) / len(chunk):.2f} [{where}]")
+
+
+def phase_lazy_main(inference, io, scatter, runner, vol, pair, seg_dense,
+                    where, tmp):
+    """The lazy main path at 256^3: blosc zarr in, digest stores out via
+    ``predict``, then the streaming segmentation of the store pair."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
+        DEFAULT_PERCENTILES,
+        streaming_percentile,
+    )
+
+    src = os.path.join(tmp, "vol.zarr")
+    t_write = write_blosc_zarr(io, src, vol, (64, 128, 128))
+    handle = io.read(src)
+    t0 = time.perf_counter()
+    got_pct = streaming_percentile(
+        handle, DEFAULT_PERCENTILES, transform=lambda b: np.minimum(b, 1000))
+    t_pct = time.perf_counter() - t0
+    want_pct = np.percentile(np.minimum(vol, 1000), DEFAULT_PERCENTILES)
+    print(f"lazy main path: streaming_percentile {got_pct.tolist()} vs "
+          f"np.percentile {want_pct.tolist()} ({t_pct:.3f} s)")
+    check(np.array_equal(got_pct, want_pct),
+          "streaming percentile differs from np.percentile")
+
+    paths = (os.path.join(tmp, "plan.zarr"), os.path.join(tmp, "qaff.zarr"))
+    scatter.scatter_batch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plan_h, qaff_h = inference.predict(handle, runner, verbose=False,
+                                       predigest=True, out_path=paths)
+    torch.cuda.synchronize()
+    t_pred = time.perf_counter() - t0
+    launches = scatter.scatter_batch.launches
+    check(launches > 0, "lazy predict did not launch K1")
+    check(np.array_equal(plan_h[:], pair[0])
+          and np.array_equal(qaff_h[:], pair[1]),
+          "lazy digest stores differ from the in-RAM digest pair")
+    print(f"lazy main path: zarr write (blosc) {t_write:.3f} s, lazy "
+          f"predict(predigest, out_path) {t_pred:.3f} s "
+          f"({vol.size / t_pred / 1e6:.2f} Mvox/s), K1 launches {launches}; "
+          f"stores == in-RAM digest [{where}]")
+
+    t0 = time.perf_counter()
+    seg_h = inference.affinities_to_segmentation(
+        (plan_h, qaff_h), out_path=os.path.join(tmp, "seg.zarr"),
+        tmp_dir=tmp, verbose=True)
+    t_seg = time.perf_counter() - t0
+    check(np.array_equal(seg_h[:], seg_dense),
+          "streaming labels differ from the dense labels")
+    print(f"lazy main path: streaming segment of the store pair {t_seg:.3f} s"
+          f" (stage stamps on stderr), {int(seg_dense.max())} segments, "
+          f"labels == dense [{where}]")
+    return launches
+
+
+def phase_lazy_float(inference, io, crop, seg_crop, where, tmp):
+    """A 128^3 crop of float affinities as a zarr store: digested on the
+    card inside ``segment_streaming``; labels == the crop's dense ones."""
+    path = os.path.join(tmp, "aff_crop.zarr")
+    t_write = write_blosc_zarr(io, path, crop, (3, 64, 128, 128))
+    t0 = time.perf_counter()
+    seg = inference.affinities_to_segmentation(io.read(path), tmp_dir=tmp)
+    t_seg = time.perf_counter() - t0
+    check(np.array_equal(seg, seg_crop),
+          "lazy float labels differ from the crop's dense labels")
+    print(f"lazy float path ({crop.shape[1]}^3): zarr write {t_write:.3f} s, "
+          f"streaming segment with the digest on the card {t_seg:.3f} s, "
+          f"{int(seg.max())} segments, labels == dense [{where}]")
+
+
+def phase_lazy_teasar(inference, io, tubes, dense_zip, where, tmp):
+    """Phase 6's 32-tube labels as a zarr store: the lazy TEASAR zip holds
+    the dense zip's 32 entries, byte for byte."""
+    path = os.path.join(tmp, "tubes.zarr")
+    write_blosc_zarr(io, path, tubes, (64, 128, 128))
+    zip_path = os.path.join(tmp, "tubes_lazy.zip")
+    t0 = time.perf_counter()
+    inference.segmentation_to_zipped_swcs(io.read(path), zip_path)
+    t_skel = time.perf_counter() - t0
+    got, want = zip_entries(zip_path), zip_entries(dense_zip)
+    check(len(want) == 32 and got == want,
+          f"lazy TEASAR zip ({len(got)} entries) differs from the dense zip")
+    print(f"lazy TEASAR (32 tubes, 256^3 store): skeletonize + zip "
+          f"{t_skel:.3f} s, 32 entries == dense zip [{where}]")
+
+
+def phase_cli(inference, io, runner, vol, ckpt, where, tmp):
+    """``python -m ... run`` on a 128^3 crop at full width, without
+    ``--device``; its labels and zip equal the library path's."""
+    crop = np.ascontiguousarray(vol[:128, :128, :128])
+    src = os.path.join(tmp, "crop.zarr")
+    write_blosc_zarr(io, src, crop, (64, 128, 128))
+    work, out = os.path.join(tmp, "cli_work"), os.path.join(tmp, "cli.zip")
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "aind_exaspim_neuron_segmentation_tpu_torch",
+         "run", "--input", src, "--model", ckpt, "--workdir", work,
+         "--output", out, "--quiet"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    t_cli = time.perf_counter() - t0
+    check(res.returncode == 0, f"CLI run failed:\n{res.stdout}{res.stderr}")
+    result = json.loads(res.stdout.strip().splitlines()[-1])
+
+    lib = os.path.join(tmp, "lib")
+    os.makedirs(lib)
+    pair = inference.predict(io.read(src), runner, verbose=False,
+                             predigest=True,
+                             out_path=(os.path.join(lib, "plan.zarr"),
+                                       os.path.join(lib, "qaff.zarr")))
+    seg = inference.affinities_to_segmentation(
+        pair, out_path=os.path.join(lib, "segmentation.zarr"))
+    inference.segmentation_to_zipped_swcs(seg, os.path.join(lib, "o.zip"))
+    check(np.array_equal(io.read(os.path.join(work, "segmentation.zarr"))[:],
+                         seg[:]),
+          "CLI run labels differ from the library path")
+    check(zip_entries(out) == zip_entries(os.path.join(lib, "o.zip")),
+          "CLI run zip differs from the library path")
+    print(f"CLI run (128^3, full width, default device): {t_cli:.3f} s in "
+          f"its process, stages_s {result['stages_s']}; labels and zip == "
+          f"library path ({int(seg[:].max())} segments) [{where}]")
 
 
 def main(argv):
@@ -653,6 +835,8 @@ def main(argv):
     from aind_exaspim_neuron_segmentation_tpu_torch import (
         cuda_build,
         inference,
+        io,
+        native,
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (
         affinity_channels,
@@ -677,14 +861,21 @@ def main(argv):
 
     k1 = phase_k1(scatter, dev, card)
     phase_parity(inference, dev)
+    where = f"{card}; {os.cpu_count()} CPUs"
     with tempfile.TemporaryDirectory() as tmp:
-        runner, vol, launches, aff, pair, t_predict = phase_main(
+        runner, vol, launches, aff, pair, t_predict, ckpt = phase_main(
             inference, predigest_slab, scatter, card, dev, tmp)
-        phase_tail_build(card)
-        phase_tail_known(inference, predigest_slab, affinity_channels, card,
-                         dev, tmp)
-        phase_tail_main(inference, predigest_slab, aff, pair, t_predict,
-                        card, dev, tmp)
+        t_build = phase_tail_build(card)
+        tubes, tubes_zip = phase_tail_known(
+            inference, predigest_slab, affinity_channels, card, dev, tmp)
+        seg_main, crop, seg_crop = phase_tail_main(
+            inference, predigest_slab, aff, pair, t_predict, card, dev, tmp)
+        phase_io_build(native, t_build, where)
+        lazy_launches = phase_lazy_main(inference, io, scatter, runner, vol,
+                                        pair, seg_main, where, tmp)
+        phase_lazy_float(inference, io, crop, seg_crop, where, tmp)
+        phase_lazy_teasar(inference, io, tubes, tubes_zip, where, tmp)
+        phase_cli(inference, io, runner, vol, ckpt, where, tmp)
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 
@@ -695,6 +886,8 @@ def main(argv):
         plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
     )]
+    print(f"K1 launches: {launches} on the main path (phase 4), "
+          f"{lazy_launches} on the lazy main path (phase 9)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

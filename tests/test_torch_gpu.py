@@ -196,3 +196,32 @@ def test_on_card_digest_segments_like_the_float_path(cuda):
     want = inference.affinities_to_segmentation(aff, min_segment_size=50)
     assert pair.dtype == np.uint32 and pair.max() == 3
     np.testing.assert_array_equal(pair, want)
+
+
+@pytest.mark.gpu
+def test_lazy_out_path_predict_on_card_equals_dense(cuda, tmp_path):
+    """A zarr volume streamed by ``predict`` on the card into ``out_path``
+    stores (floats, then the digest pair) holds what the dense call
+    returns on the same card."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
+    vol = np.random.default_rng(6).integers(0, 1500, (72, 56, 40)).astype(
+        np.uint16)
+    path = str(tmp_path / "vol.zarr")
+    io.write_zarr(path, vol, chunks=(16, 56, 40), compressor={
+        "id": "blosc", "cname": "lz4", "shuffle": 1})
+    runner = inference.load_model(device=cuda, width_multiplier=0.25)
+    pkw = dict(patch_shape=(32,) * 3, overlap=(8,) * 3, trim=4,
+               batch_size=4, verbose=False, max_slab_rows=1)
+    want = inference.predict(vol, runner, **pkw)
+    got = inference.predict(io.read(path), runner,
+                            out_path=str(tmp_path / "aff.zarr"), **pkw)
+    fig = parity_line("lazy out_path predict on the card vs dense", got[:],
+                      want)
+    assert fig["max_abs"] <= 2e-6
+    plan, qaff = inference.predict(vol, runner, predigest=True, **pkw)
+    lazy_plan, lazy_qaff = inference.predict(
+        io.read(path), runner, predigest=True,
+        out_path=(str(tmp_path / "p.zarr"), str(tmp_path / "q.zarr")), **pkw)
+    np.testing.assert_array_equal(lazy_plan[:], plan)
+    np.testing.assert_array_equal(lazy_qaff[:], qaff)

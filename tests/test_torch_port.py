@@ -285,7 +285,11 @@ def test_predict_5d_input_and_mask_mode(volume):
 
 @pytest.mark.parametrize("bad", ["channels", "blend", "out_path", "lazy",
                                  "predigest_mask"])
-def test_predict_rejects(runners, volume, bad):
+def test_predict_rejects(runners, volume, bad, tmp_path):
+    """``out_path``: a digest needs two stores; ``lazy``: a lazy handle of
+    the wrong rank."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
     _, trun = runners
     args, err = dict(KW), ValueError
     img = volume
@@ -294,9 +298,11 @@ def test_predict_rejects(runners, volume, bad):
     elif bad == "blend":
         args["blend_mode"] = "cosine"
     elif bad == "out_path":
-        args["out_path"], err = "aff.zarr", NotImplementedError
+        args.update(out_path="aff.zarr", predigest=True)
     elif bad == "lazy":
-        img, err = object(), NotImplementedError
+        path = str(tmp_path / "v4.zarr")
+        io.write_zarr(path, volume[None, :8])
+        img = io.read(path)
     else:
         args.update(affinity_mode=False, predigest=True)
         trun = inference.load_model(affinity_mode=False, device="cpu",
@@ -385,7 +391,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"import {PORT}.inference, {PORT}.core, {PORT}.models.convert\n"
         f"import {PORT}.ops.scatter, {PORT}.cuda_build\n"
         f"import {PORT}.native, {PORT}.postprocess.skeleton\n"
-        f"import {PORT}.core.affinities\n"
+        f"import {PORT}.core.affinities, {PORT}.postprocess.streaming\n"
+        f"import {PORT}.io, {PORT}.io.zarr_lite, {PORT}.io.tiff_lite\n"
+        f"import {PORT}.io.stores, {PORT}.utils.img_util\n"
+        f"import {PORT}.utils.retry, {PORT}.ops.predigest, {PORT}.core.device\n"
+        f"import {PORT}.__main__\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"
@@ -402,11 +412,44 @@ def test_native_build_sources_lie_inside_the_port():
 
     port = os.path.join(REPO, PORT) + os.sep
     names = sorted(os.path.basename(p) for p in build.sources())
-    assert names == ["agglomerate.cpp", "common.hpp", "edt.cpp", "edt.hpp",
-                     "rag.hpp", "remap.cpp", "teasar.cpp"]
+    assert names == ["agglomerate.cpp", "blosc_lite.cpp", "common.hpp",
+                     "edt.cpp", "edt.hpp", "jpeg_lite.cpp", "rag.hpp",
+                     "remap.cpp", "streamseg.cpp", "teasar.cpp"]
     for path in build.sources() + [build.lib_path()]:
         assert os.path.realpath(path).startswith(port), path
-    assert "-lz" not in build.CXXFLAGS and "-lzstd" not in build.CXXFLAGS
+    # zlib always; zstd (and EXA_HAVE_ZSTD) only where the probe found it
+    cflags, libs = build.flags()
+    zstd = build.have_zstd()
+    assert libs == (["-lz", "-lzstd"] if zstd else ["-lz"])
+    assert ("-DEXA_HAVE_ZSTD" in cflags) == zstd
+
+
+def test_engine_build_runs_once_across_processes(tmp_path):
+    """Six processes ask for one missing library at once: the build lock
+    lets one compiler run; the others wait and find its file."""
+    count = tmp_path / "count"
+    fake = tmp_path / "fake_cxx.py"
+    fake.write_text(
+        f"#!{sys.executable}\n"
+        "import sys, time\n"
+        f"open({str(count)!r}, 'a').write('x')\n"
+        "time.sleep(1)\n"
+        "open(sys.argv[sys.argv.index('-o') + 1], 'wb').write(b'lib')\n"
+    )
+    fake.chmod(0o755)
+    code = (
+        f"from {PORT}.native import build\n"
+        f"build.BUILD_DIR = {str(tmp_path)!r}\n"
+        f"build.CXX = {str(fake)!r}\n"
+        "build.have_zstd = lambda: False\n"
+        f"build._ensure_built({str(tmp_path / 'libexaspim_native_x.so')!r})\n"
+    )
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=REPO)
+             for _ in range(6)]
+    for p in procs:
+        assert p.wait(timeout=120) == 0
+    assert count.read_text() == "x"
+    assert (tmp_path / "libexaspim_native_x.so").read_bytes() == b"lib"
 
 
 def test_port_and_chip_smoke_sources_import_no_jax():

@@ -75,10 +75,13 @@ def test_engine_loads_from_the_ports_build_dir():
     assert os.path.dirname(build.loaded_path()) == port_build
     assert os.path.basename(build.loaded_path()).startswith(
         "libexaspim_native_")
-    # each handle resolves its own exa_* symbols (RTLD_LOCAL)
-    addr = ctypes.cast(lib.exa_watershed, ctypes.c_void_p).value
-    jaddr = ctypes.cast(jlib.exa_watershed, ctypes.c_void_p).value
-    assert addr != jaddr
+    # each handle resolves its own exa_* symbols (RTLD_LOCAL), the
+    # codecs' among them
+    for name in ("exa_watershed", "exa_blosc_decompress",
+                 "exa_streamseg_feed"):
+        addr = ctypes.cast(getattr(lib, name), ctypes.c_void_p).value
+        jaddr = ctypes.cast(getattr(jlib, name), ctypes.c_void_p).value
+        assert addr != jaddr, name
 
 
 @pytest.fixture(scope="module")
@@ -299,14 +302,19 @@ def test_skeletonize_equals_jax(name):
         assert len(back.edges) == len(mine.edges)
 
 
-def test_skeletonize_takes_a_tensor_and_rejects_a_lazy_handle():
+def test_skeletonize_takes_a_tensor_and_rejects_a_lazy_handle(tmp_path):
+    """A tensor is dense; a lazy label handle of the wrong rank raises
+    (lazy 3D handles are ``tests/test_torch_streaming.py``'s)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
     seg = _tube()
     got = skeleton.skeletonize(torch.from_numpy(seg.astype(np.int32)))
     want = jskel.skeletonize(seg)
     _same("skeletonize tensor input vertices", got[1].vertices,
           want[1].vertices)
-    with pytest.raises(NotImplementedError, match="slice 4"):
-        skeleton.skeletonize(object())
+    io.write_zarr(str(tmp_path / "s4.zarr"), seg[None])
+    with pytest.raises(ValueError, match="3D label handle"):
+        skeleton.skeletonize(io.read(str(tmp_path / "s4.zarr")))
     assert skeleton.skeletonize(np.zeros((5, 5, 5), np.uint32)) == {}
 
 
@@ -349,7 +357,11 @@ def test_affinities_to_segmentation_equals_jax(blobs, form):
 
 @pytest.mark.parametrize("bad", ["pair_thresholds", "out_path", "lazy",
                                  "lazy_pair"])
-def test_affinities_to_segmentation_rejects(blobs, bad):
+def test_affinities_to_segmentation_rejects(blobs, bad, tmp_path):
+    """``out_path`` needs a lazy input; a lazy handle of the wrong rank
+    and a lazy pair of mismatched shapes raise like the JAX package."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
     _, aff, pair = blobs
     err, args, kw = ValueError, (aff,), {}
     if bad == "pair_thresholds":
@@ -357,11 +369,15 @@ def test_affinities_to_segmentation_rejects(blobs, bad):
     elif bad == "out_path":
         kw = dict(out_path="labels.zarr")
     elif bad == "lazy":
-        err, args = NotImplementedError, (object(),)
+        io.write_zarr(str(tmp_path / "a.zarr"), aff[0])
+        args = (io.read(str(tmp_path / "a.zarr")),)
     else:
-        err, args = NotImplementedError, ((object(), object()),)
-    with pytest.raises(err, match="baked|lazy|slice 4"):
-        inference.affinities_to_segmentation(*args, **kw)
+        io.write_zarr(str(tmp_path / "p.zarr"), pair[0][:4])
+        io.write_zarr(str(tmp_path / "q.zarr"), pair[1])
+        args = ((io.read(str(tmp_path / "p.zarr")),
+                 io.read(str(tmp_path / "q.zarr"))),)
+    with pytest.raises(err, match="baked|lazy|expected|do not match"):
+        inference.affinities_to_segmentation(*args, device="cpu", **kw)
 
 
 def _zip_entries(path):
