@@ -18,6 +18,11 @@ a lazy handle runs the slab-streaming engine, and TEASAR of a lazy label
 store runs per-label crops. ``python -m
 aind_exaspim_neuron_segmentation_tpu_torch run`` chains the three.
 
+Training (``machine_learning.Trainer`` on the numpy datasets, with the
+augmentation on the device, ``ops.augment_device``; ``python -m
+aind_exaspim_neuron_segmentation_tpu_torch train``) writes the best-F1
+``.pth`` that ``load_model`` reads.
+
 The JAX package ``aind_exaspim_neuron_segmentation_tpu`` is the numerical
 reference; this package imports nothing from it and never imports JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
@@ -31,7 +36,7 @@ def __getattr__(name):
     """Lazy submodule access: keep the package import lightweight."""
     import importlib
 
-    if name in ("core", "cuda_build", "inference", "io", "models",
-                "native", "ops", "postprocess", "utils"):
+    if name in ("core", "cuda_build", "inference", "io", "machine_learning",
+                "models", "native", "ops", "postprocess", "utils"):
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

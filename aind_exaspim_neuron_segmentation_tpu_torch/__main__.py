@@ -9,14 +9,17 @@
     python -m aind_exaspim_neuron_segmentation_tpu_torch run \\
         --input vol.zarr --model weights.pth --workdir /tmp/job \\
         --output skeletons.zip
+    python -m aind_exaspim_neuron_segmentation_tpu_torch train \\
+        --images a.zarr b.zarr --labels a_seg.zarr b_seg.zarr \\
+        --output runs/
 
 Every path accepts what :func:`.io.read` accepts (zarr / N5 / TIFF,
 local or gs:// / s3://); volume outputs stream to Zarr stores, so
 beyond-RAM volumes work end to end (``run`` uses the on-device digest
-and the streaming segmentation throughout). The model and the digest of
-float affinities run on ``--device`` (before the subcommand; default
-``cuda``, which raises without a card). Each command prints one JSON
-line as its result.
+and the streaming segmentation throughout). The model, the digest of
+float affinities and training run on ``--device`` (before the
+subcommand; default ``cuda``, which raises without a card). Each command
+prints one JSON line as its result.
 """
 
 import argparse
@@ -168,8 +171,55 @@ def cmd_run(args):
     })
 
 
+def cmd_train(args):
+    """Train UNet3D on image/label volume pairs (reference train loop)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        data_handling,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning.train import (  # noqa: E501
+        Trainer,
+    )
+
+    if len(args.images) != len(args.labels):
+        raise SystemExit("--images and --labels must pair up")
+    # the Trainer first: without a card it raises before any volume loads
+    trainer = Trainer(
+        args.output,
+        affinity_mode=not args.foreground,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        max_epochs=args.epochs,
+        width_multiplier=args.width_multiplier,
+        seed=args.seed,
+        num_workers=args.num_workers,
+        device=args.device,
+    )
+    common = dict(
+        affinity_mode=not args.foreground,
+        patch_shape=args.patch,
+        brightness_clip=args.brightness_clip,
+    )
+    # Default: raw label patches, so the Trainer augments on the device
+    # (and ships raw u16 patches when the volumes qualify);
+    # --host-augment runs ImageTransforms on the host instead.
+    train_ds = data_handling.TrainDataset(
+        list(args.images), list(args.labels),
+        transform=args.host_augment,
+        return_label_patches=not args.host_augment,
+        seed=args.seed, **common,
+    )
+    val_ds = data_handling.ValidateDataset(
+        list(args.val_images or args.images),
+        list(args.val_labels or args.labels),
+        containment_buffer=args.containment_buffer,
+        **common,
+    )
+    trainer.run(train_ds, val_ds)
+    _emit({"train": trainer.log_dir})
+
+
 def build_parser():
-    """Build the top-level argparse parser with its four subcommands."""
+    """Build the top-level argparse parser with its five subcommands."""
     from aind_exaspim_neuron_segmentation_tpu_torch import __version__
 
     top = argparse.ArgumentParser(
@@ -180,9 +230,9 @@ def build_parser():
                      version=f"%(prog)s {__version__}")
     top.add_argument(
         "--device", choices=("cuda", "cpu"), default="cuda",
-        help="where the model and the digest of float affinities run "
-             "(default cuda: raises without a card). Goes BEFORE the "
-             "subcommand.",
+        help="where the model, the digest of float affinities and "
+             "training run (default cuda: raises without a card). Goes "
+             "BEFORE the subcommand.",
     )
     sub = top.add_subparsers(dest="command", required=True)
 
@@ -230,6 +280,32 @@ def build_parser():
     p.add_argument("--anisotropy", type=float, nargs=3, default=(1, 1, 1))
     p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_run)
+
+    p = sub.add_parser("train", help="train UNet3D on volume/label pairs")
+    p.add_argument("--output", required=True, help="runs directory")
+    p.add_argument("--images", nargs="+", required=True)
+    p.add_argument("--labels", nargs="+", required=True)
+    p.add_argument("--val-images", nargs="+")
+    p.add_argument("--val-labels", nargs="+")
+    p.add_argument("--foreground", action="store_true")
+    p.add_argument("--patch", type=_triple, default=(96, 96, 96),
+                   metavar="D,H,W")
+    p.add_argument("--brightness-clip", type=float, default=300)
+    p.add_argument("--batch-size", type=int, default=16)
+    p.add_argument("--lr", type=float, default=1e-3)
+    p.add_argument("--epochs", type=int, default=1000)
+    p.add_argument("--width-multiplier", type=float, default=1)
+    p.add_argument("--containment-buffer", type=int, default=64,
+                   help="validation-grid center containment margin "
+                        "(reference default 64; use 0 for small volumes)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--host-augment", action="store_true",
+                   help="augment on the host (ImageTransforms) instead "
+                        "of the default augmentation on the device")
+    p.add_argument("--num-workers", type=int, default=0, metavar="N",
+                   help="fork N sampler processes (0 = one producer "
+                        "thread)")
+    p.set_defaults(fn=cmd_train)
     return top
 
 
@@ -259,6 +335,13 @@ def main(argv=None):
             "run is the affinity->segmentation pipeline; foreground "
             "output cannot feed segmentation (use `predict --foreground`)"
         )
+    if args.command == "train":
+        if (args.val_images is None) != (args.val_labels is None):
+            raise SystemExit(
+                "--val-images and --val-labels must be given together"
+            )
+        if args.val_images and len(args.val_images) != len(args.val_labels):
+            raise SystemExit("--val-images and --val-labels must pair up")
     args.fn(args)
 
 

@@ -1,9 +1,11 @@
-"""Sliding-window patch-grid arithmetic (numpy).
+"""Sliding-window patch-grid arithmetic and center-based patches (numpy).
 
 The start range along each axis is ``range(0, dim - patch + stride,
 stride)`` with ``stride = patch - overlap``; the final start may overhang
 the volume, and the stitcher reflect-pads the volume so that every patch
-is full-size (see :func:`..ops.stitch.reflect_pad_to_grid`).
+is full-size (see :func:`..ops.stitch.reflect_pad_to_grid`). The training
+datasets cut center-based patches (:func:`get_patch`) and keep validation
+centers inside the volume (:func:`is_contained`).
 """
 
 import itertools
@@ -53,3 +55,39 @@ def patch_starts_array(img_shape, patch_shape, overlap):
     """All patch starts as an (N, 3) int32 array."""
     starts = list(generate_patch_starts(img_shape, patch_shape, overlap))
     return np.asarray(starts, dtype=np.int32).reshape(-1, 3)
+
+
+def get_slices(center, shape):
+    """Slices for a center-based patch (start = center - shape // 2).
+
+    Not clipped to any volume.
+    """
+    return tuple(
+        slice(c - d // 2, c - d // 2 + d) for c, d in zip(center, shape)
+    )
+
+
+def get_patch(img, center, shape):
+    """Extract a center-based patch from a 3D or 5D-indexed array.
+
+    ``img`` may be any array-like supporting slice indexing (including a
+    lazy zarr handle); 5D arrays are indexed as ``img[0, 0, z, y, x]``.
+    """
+    s = get_slices(center, shape)
+    return img[s] if img.ndim == 3 else img[(0, 0, *s)]
+
+
+def add_padding(patch, patch_shape):
+    """Reflect-pad a clipped patch at the end of each axis to patch_shape
+    (``mode='reflect'``, as the reference does despite its docstring)."""
+    pad_width = [(0, p - s) for p, s in zip(patch_shape, patch.shape)]
+    if any(w for _, w in pad_width):
+        return np.pad(patch, pad_width, mode="reflect")
+    return patch
+
+
+def is_contained(voxel, shape, buffer=0):
+    """True if voxel +/- buffer is in-bounds on every axis."""
+    above = all(0 <= v + buffer < s for v, s in zip(voxel, shape))
+    below = all(0 <= v - buffer < s for v, s in zip(voxel, shape))
+    return above and below

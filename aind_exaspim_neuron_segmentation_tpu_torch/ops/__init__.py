@@ -1,1 +1,2 @@
-"""Device ops: overlap-blend stitching (kernel K1) and the pre-digest."""
+"""Device ops: overlap-blend stitching (kernel K1), the pre-digest and the
+training augmentation."""

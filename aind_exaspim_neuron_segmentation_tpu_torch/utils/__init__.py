@@ -1,2 +1,3 @@
-"""Host utilities of the port: IO dispatch (:mod:`.img_util`) and retry
-with backoff for cloud stores (:mod:`.retry`)."""
+"""Host utilities of the port: IO dispatch (:mod:`.img_util`), retry
+with backoff for cloud stores (:mod:`.retry`) and directory helpers
+(:mod:`.util`)."""

@@ -4,7 +4,8 @@
 Run from the repository root with one CUDA device::
 
     python3 chip_smoke.py            # build, check, drive, report
-    python3 chip_smoke.py --profile  # also a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # also torch.profiler breakdowns of
+                                     # a predict and two train steps
 
 Phases (any failure raises, and the script exits non-zero):
 
@@ -61,13 +62,38 @@ Phases (any failure raises, and the script exits non-zero):
     in a subprocess (no ``--device``) on a 128^3 crop of the volume at
     full width with phase 4's checkpoint; its ``segmentation.zarr`` and
     zip entries equal the library path on the same lazy handle;
-13. one ``{"kernels": [...]}`` line, the card line, and as the last line
+13. training, which reaches no hand kernel (K1's count is read around it,
+    0): (a) one float32 train step (TF32 off) at width 0.25, 32^3, batch
+    2 on the card against the CPU from the same seeded weights, the loss
+    within 1e-5 relative, per tensor the gradients within 1e-3 of the
+    tensor's max-abs gradient of each other and of a float64 forward and
+    backward on the CPU, the worst four tensors printed (the conv biases
+    that feed a BatchNorm, whose true gradient is 0, both <= 1e-6 of the
+    largest); (b) the
+    device augmentation at 16 x 96^3 given the same draws on the card and
+    the CPU, flips, rotations and labels bit-equal, noise, smoothing and
+    contrast within max-abs 1e-6, and its time on the card; (c)
+    ``Trainer(batch_size=16, use_amp=True)`` at full width on 8 seeded
+    uint16 160^3 volumes with tube labels, ``TrainDataset(
+    return_label_patches=True)`` (augmentation on the card, raw u16 wire)
+    and ``ValidateDataset(containment_buffer=0)``, ``run`` for 2 epochs of
+    2 steps plus validation: every loss finite, the step times on the
+    device (CUDA events, first and warm median), the host's enqueue time
+    and input wait, patches/s, peak device memory; the best-F1 ``.pth``
+    loads strictly into ``load_model`` (bf16, folded) and ``predict`` on a
+    128^3 crop gives finite affinities; then ``python -m
+    aind_exaspim_neuron_segmentation_tpu_torch train`` in a subprocess (no
+    ``--device``) on the same volumes as blosc zarr stores, batch 16,
+    96^3, 1 epoch: its JSON line names its run directory, whose best-F1
+    ``.pth`` loads into ``load_model``;
+14. one ``{"kernels": [...]}`` line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -96,6 +122,22 @@ def check(cond, msg):
     """Raise unless ``cond`` holds."""
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+@contextlib.contextmanager
+def tf32_off():
+    """TF32 off in cuDNN and cuBLAS inside the block (or the decorated
+    phase), so float32 on the card rounds as float32; the flags are
+    restored after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = saved
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -305,10 +347,9 @@ def phase_k1(scatter, dev, card):
     return dict(max_abs_err=max(max_err, err), **timed)
 
 
+@tf32_off()
 def phase_parity(inference, dev):
     """f32 forward and small predict on the card vs the port's CPU path."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(width_multiplier=0.25, dtype=torch.float32)
     cpu = inference.load_model(device="cpu", **kw)
     gpu = inference.load_model(device=dev, **kw)
@@ -363,12 +404,11 @@ def calibrated_checkpoint(inference, vol, dev, path):
     torch.save({k: v.cpu() for k, v in net.state_dict().items()}, path)
 
 
+@tf32_off()
 def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
     """The main path at full width, then its float32 reference; returns
     the runner, the volume, the K1 launch count of the main path, its
     affinities and digest pair and the digest predict's wall seconds."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     vol = np.random.default_rng(3).integers(
         0, 1500, (256, 256, 256), dtype=np.uint16)
     nvox = vol.size
@@ -448,18 +488,12 @@ def phase_main(inference, predigest_slab, scatter, card, dev, tmp):
     return runner, vol, launches, aff, (plan, qaff), t_dig, ckpt
 
 
-def profile_predict(inference, runner, vol):
-    """Device-time breakdown of one predict by kernel (torch.profiler),
-    and the host time of its CPU-side ops."""
+def print_kernel_table(prof, wall, what):
+    """The device kernels of a ``torch.profiler`` run, largest first: the
+    20 largest and K1 wherever it ranks, with the device's busy share of
+    ``wall`` seconds."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        inference.predict(vol, runner, verbose=False)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     rows = []
     for evt in prof.key_averages():
         # kernel and memcpy rows only: an op's row repeats its kernels' time
@@ -471,14 +505,46 @@ def profile_predict(inference, runner, vol):
         rows.append((us, evt.count, evt.key))
     rows.sort(reverse=True)
     total = sum(r[0] for r in rows)
-    print(f"profile: wall {wall * 1e3:.1f} ms, device kernels "
+    print(f"profile {what}: wall {wall * 1e3:.1f} ms, device kernels "
           f"{total / 1e3:.1f} ms (busy share {total / 1e6 / wall:.3f}) "
           f"[one stream: kernels do not overlap]")
-    # the 20 largest, and K1 wherever it ranks
     for us, count, key in [r for i, r in enumerate(rows)
                            if i < 20 or "scatter_blend" in r[2]]:
         print(f"  {us / 1e3:10.3f} ms {100 * us / total:5.1f}% "
               f"x{count:<5d} {key[:100]}")
+
+
+def profile_train(trainer, data_handling, dataset):
+    """Device-time breakdown of two warm train steps at full width
+    (torch.profiler), the batches sampled beforehand."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batches = [b for _, b in zip(range(2), data_handling.iterate_batches(
+        dataset, trainer.batch_size))]
+    trainer.train_batch(*batches[0], epoch=9, step=0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step, (xs, ys) in enumerate(batches):
+            trainer.train_batch(xs, ys, epoch=9, step=step)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_kernel_table(prof, wall, "2 train steps")
+
+
+def profile_predict(inference, runner, vol):
+    """Device-time breakdown of one predict by kernel (torch.profiler),
+    and the host time of its CPU-side ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        inference.predict(vol, runner, verbose=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    print_kernel_table(prof, wall, "predict")
 
     from aind_exaspim_neuron_segmentation_tpu_torch.core import normalize
     from aind_exaspim_neuron_segmentation_tpu_torch.ops.stitch import (
@@ -825,6 +891,287 @@ def phase_cli(inference, io, runner, vol, ckpt, where, tmp):
           f"library path ({int(seg[:].max())} segments) [{where}]")
 
 
+def pre_bn_bias(name):
+    """Conv biases that feed a train-mode BatchNorm: BatchNorm removes
+    them, so their true gradient is 0 and what is computed is noise."""
+    return name.endswith(("double_conv.0.bias", "double_conv.3.bias"))
+
+
+def train_batch_host(batch, size, seed):
+    """NCDHW float32 patches with continuous intensities (no max-pool ties)
+    and uint16 labels of a few boxes, as host arrays."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 0.5, (batch, 1) + (size,) * 3).astype(np.float32)
+    y = np.zeros(x.shape, np.uint16)
+    for b in range(batch):
+        for label in (1, 2, 3):
+            lo = rng.integers(0, size - 12, 3)
+            hi = lo + rng.integers(6, 12, 3)
+            y[b, 0, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = label
+        x[b, 0][y[b, 0] > 0] += np.float32(0.4)
+    return x, y
+
+
+def float64_gradients(model, x, y):
+    """Loss and gradients of one train-mode forward and backward of a
+    float64 copy of ``model`` on the CPU (affinity targets, BCE mean)."""
+    import copy
+
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (
+        affinity_channels,
+    )
+
+    net = copy.deepcopy(model).cpu().double().train()
+    target = affinity_channels(torch.from_numpy(y.astype(np.int32))[:, 0])
+    loss = torch.nn.functional.binary_cross_entropy_with_logits(
+        net(torch.from_numpy(x).double()), target.double())
+    loss.backward()
+    return loss.item(), {n: p.grad.numpy()
+                         for n, p in net.named_parameters()}
+
+
+@tf32_off()
+def phase_train_parity(train, dev, card, tmp):
+    """(a) One float32 train step on the card against the CPU, both also
+    against a float64 forward and backward of the same weights."""
+    x, y = train_batch_host(2, 32, seed=4)
+    out = {}
+    for where in ("cpu", dev):
+        tr = train.Trainer(os.path.join(tmp, f"parity_{where}"), batch_size=2,
+                           width_multiplier=0.25, use_amp=False,
+                           prefetch=False, device=where)
+        if where == "cpu":
+            l64, g64 = float64_gradients(tr.model, x, y)
+        t0 = time.perf_counter()
+        loss, _, _ = tr.train_batch(x, y)
+        loss = float(loss)
+        out[str(where)] = (loss, time.perf_counter() - t0, {
+            n: p.grad.cpu().numpy() for n, p in tr.model.named_parameters()})
+    (l_cpu, t_cpu, g_cpu), (l_gpu, t_gpu, g_gpu) = out["cpu"], out[str(dev)]
+    rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    top = max(np.abs(g).max() for g in g64.values())
+    rows, noise = [], 0.0
+    for name, t in g64.items():
+        if pre_bn_bias(name):
+            noise = max(noise, np.abs(g_cpu[name]).max() / top,
+                        np.abs(g_gpu[name]).max() / top)
+            continue
+        scale = np.abs(t).max()
+        rows.append((float(np.abs(g_gpu[name] - g_cpu[name]).max() / scale),
+                     float(np.abs(g_gpu[name] - t).max() / scale),
+                     float(np.abs(g_cpu[name] - t).max() / scale), name))
+    rows.sort(reverse=True)
+    worst = rows[0][0]
+    print(f"train (a) f32 step, width 0.25, 32^3, batch 2, card vs CPU: loss "
+          f"{l_gpu:.7f} vs {l_cpu:.7f} (rel {rel:.3e}; float64 "
+          f"{l64:.7f}), worst tensor gradient {worst:.3e} of its max; "
+          f"pre-BatchNorm conv-bias gradients <= {noise:.3e} of the "
+          f"largest; first step {t_gpu:.3f} s card, {t_cpu:.3f} s CPU "
+          f"[{card}]")
+    for card_cpu, card_64, cpu_64, name in rows[:4]:
+        print(f"  {name}: card-CPU {card_cpu:.3e}, card-float64 "
+              f"{card_64:.3e}, CPU-float64 {cpu_64:.3e} of its max")
+    check(rel <= 1e-5, f"train step loss rel {rel} > 1e-5")
+    # cuDNN's float32 gradients (TF32 off) lie up to ~2.6e-4 of a
+    # tensor's max from float64 here, the CPU's ~1e-5 (the rows above);
+    # a missing term or a wrong scale moves a tensor by O(1) of its max
+    check(worst <= 1e-3, f"train step gradient {worst} > 1e-3 of max")
+    check(max(r[1] for r in rows) <= 1e-3,
+          "card gradient > 1e-3 of a tensor's max from float64")
+    check(noise <= 1e-6, f"pre-BatchNorm bias gradient {noise} > 1e-6")
+
+
+def phase_augment_parity(augment_device, dev, card, batch=16, size=96):
+    """(b) The device augmentation given fixed draws, card vs CPU, and its
+    time on the card at the training shape."""
+    rng = np.random.default_rng(8)
+    shape = (batch, 1) + (size,) * 3
+    img = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+    lab = torch.from_numpy(rng.integers(0, 1000, shape).astype(np.int32))
+    params = augment_device.draw_augment_params(
+        torch.Generator().manual_seed(5), batch, shape[2:])
+    dev_params = {k: v.to(dev) for k, v in params.items()}
+    img_d, lab_d = img.to(dev), lab.to(dev)
+    t0 = time.perf_counter()
+    gi_c, gl_c = augment_device.apply_geometric(img, lab, params)
+    want = augment_device.apply_intensity(gi_c, params)
+    t_cpu = time.perf_counter() - t0
+    gi_g, gl_g = augment_device.apply_geometric(img_d, lab_d, dev_params)
+    got = augment_device.apply_intensity(gi_g, dev_params)
+    geo = torch.equal(gi_g.cpu(), gi_c) and torch.equal(gl_g.cpu(), gl_c)
+    err = (got.cpu() - want).abs().max().item()
+    ms, _ = cuda_ms(lambda: augment_device.apply_augment(img_d, lab_d,
+                                                         dev_params),
+                    iters=10, warmup=2)
+    print(f"train (b) augmentation {tuple(shape)}, same draws: flips, "
+          f"rotations ({int(params['rotate'].sum())} of {3 * batch} planes) "
+          f"and labels {'bit-equal' if geo else 'DIFFER'} card vs CPU, "
+          f"intensity max abs {err:.3e}; apply_augment {ms:.3f} ms on the "
+          f"card, {t_cpu:.3f} s on the host's CPU [{card}]")
+    check(geo, "augmentation: geometric transforms differ card vs CPU")
+    check(err <= 1e-6, f"augmentation intensity max abs {err} > 1e-6")
+
+
+def timed_train_batches(trainer):
+    """Record, for every ``train_batch`` of ``trainer``, CUDA events around
+    its work on the device, its host time and its loss."""
+    rec = []
+    inner = trainer.train_batch
+
+    def train_batch(xs, ys, epoch=0, step=0):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        out = inner(xs, ys, epoch, step)
+        end.record()
+        rec.append((start, end, time.perf_counter() - t0, out[0]))
+        return out
+
+    trainer.train_batch = train_batch
+    return rec
+
+
+def cli_train(inference, io, imgs, labs, card, dev, tmp, patch, batch):
+    """``python -m ... train`` in a subprocess (no ``--device``) at full
+    width on ``imgs`` / ``labs`` written to blosc zarr stores, one epoch:
+    its JSON line names the run directory, whose best-F1 ``.pth`` loads
+    strictly into ``load_model``."""
+    paths = {"images": [], "labels": []}
+    for k, (img, lab) in enumerate(zip(imgs, labs)):
+        for kind, arr in (("images", img), ("labels", lab)):
+            path = os.path.join(tmp, f"train_{kind}_{k}.zarr")
+            write_blosc_zarr(io, path, arr, (80,) + arr.shape[1:])
+            paths[kind].append(path)
+    out = os.path.join(tmp, "cli_train")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "aind_exaspim_neuron_segmentation_tpu_torch",
+         "train", "--images", *paths["images"], "--labels",
+         *paths["labels"], "--output", out, "--patch", f"{patch},{patch},"
+         f"{patch}", "--batch-size", str(batch), "--epochs", "1",
+         "--containment-buffer", "0"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    t_cli = time.perf_counter() - t0
+    check(res.returncode == 0,
+          f"CLI train failed:\n{res.stdout}{res.stderr}")
+    log_dir = json.loads(res.stdout.strip().splitlines()[-1])["train"]
+    pths = sorted(f for f in os.listdir(log_dir)
+                  if f.startswith("UNet3d-") and f.endswith(".pth"))
+    check(os.path.dirname(log_dir) == out and pths,
+          f"CLI train wrote no best-F1 .pth under {out}: {res.stdout}")
+    runner = inference.load_model(os.path.join(log_dir, pths[-1]),
+                                  device=dev)
+    check(runner.module.fused_bn
+          and runner.module.outc.conv.weight.dtype == torch.bfloat16,
+          "CLI train checkpoint did not load as bf16 folded")
+    print(f"train (c) CLI train ({len(imgs)} zarr volume pairs, full width, "
+          f"batch {batch}, {patch}^3, 1 epoch, default device): "
+          f"{t_cli:.3f} s in its process; {pths[-1]} loads strictly into "
+          f"load_model [{card}]")
+
+
+def phase_train_full(train, data_handling, inference, io, scatter, card,
+                     dev, tmp, n_vol=8, size=160, patch=96, batch=16,
+                     width=1):
+    """(c) The training main path at full width: ``Trainer.run``, then its
+    best-F1 ``.pth`` through ``load_model`` and ``predict``; then the CLI
+    ``train`` on the same volumes as zarr stores."""
+    t0 = time.perf_counter()
+    imgs, labs = [], []
+    for k in range(n_vol):
+        lab = tube_labels((size,) * 3, n=32 if size >= 160 else 12, seed=k)
+        rng = np.random.default_rng(100 + k)
+        img = rng.integers(0, 120, lab.shape).astype(np.uint16)
+        img[lab > 0] += np.uint16(350)
+        imgs.append(img)
+        labs.append(lab)
+    t_data = time.perf_counter() - t0
+    shape = (patch,) * 3
+    train_ds = data_handling.TrainDataset(
+        imgs, labs, patch_shape=shape, seed=0, return_label_patches=True)
+    val_ds = data_handling.ValidateDataset(
+        imgs, labs, patch_shape=shape, containment_buffer=0)
+    trainer = train.Trainer(os.path.join(tmp, "train"), batch_size=batch,
+                            use_amp=True, max_epochs=2, width_multiplier=width,
+                            device=dev)
+    rec = timed_train_batches(trainer)
+    epochs = []
+    inner_epoch = trainer.train_step
+
+    def train_step(dataset, epoch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = inner_epoch(dataset, epoch)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t, trainer.input_wait_s))
+        return stats
+
+    trainer.train_step = train_step
+    torch.cuda.reset_peak_memory_stats()
+    scatter.scatter_batch.launches = 0
+    t0 = time.perf_counter()
+    best = trainer.run(train_ds, val_ds)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    k1_train = scatter.scatter_batch.launches
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(r[3]) for r in rec]
+    dev_ms = [r[0].elapsed_time(r[1]) for r in rec]
+    host_ms = [r[2] * 1e3 for r in rec]
+    n_patches = len(train_ds)
+    print(f"train (c) full width, batch {batch}, {patch}^3, bf16 autocast, "
+          f"augmentation on the card ({trainer.device_augment}), raw u16 "
+          f"wire ({train_ds.wire_raw_images}), label wire "
+          f"({train_ds.wire_labels}): {len(rec)} steps in 2 epochs + "
+          f"validation of {len(val_ds)} patches, run {t_run:.3f} s "
+          f"(volumes made in {t_data:.3f} s); K1 launches in training "
+          f"{k1_train} [{card}]")
+    print(f"train (c) losses {[round(v, 6) for v in losses]}, best val F1 "
+          f"{best:.4f}")
+    print(f"train (c) step on the device (CUDA events): first "
+          f"{dev_ms[0]:.1f} ms, warm median {np.median(dev_ms[1:]):.1f} ms "
+          f"(all {[round(v, 1) for v in dev_ms]}); host time in "
+          f"train_batch {[round(v, 1) for v in host_ms]} ms [{card}]")
+    for e, (wall, wait) in enumerate(epochs):
+        print(f"train (c) epoch {e}: {wall:.3f} s for {n_patches} patches "
+              f"({n_patches / wall:.2f} patches/s), input_wait_s "
+              f"{wait:.3f} [{card}]")
+    print(f"train (c) peak device memory (max_memory_allocated) "
+          f"{peak:.2f} GiB [{card}]")
+    steps = 2 * -(-n_patches // batch)
+    check(len(rec) == steps and all(np.isfinite(losses)),
+          f"{len(rec)} training steps of {steps}, losses {losses}")
+    check(trainer.device_augment and train_ds.wire_raw_images,
+          "the device-augment raw-wire path was not taken")
+    pths = sorted(f for f in os.listdir(trainer.log_dir)
+                  if f.startswith("UNet3d-") and f.endswith(".pth"))
+    check(pths, f"no best-F1 .pth written (best F1 {best})")
+    runner = inference.load_model(os.path.join(trainer.log_dir, pths[-1]),
+                                  device=dev, width_multiplier=width)
+    check(runner.module.fused_bn
+          and runner.module.outc.conv.weight.dtype == torch.bfloat16,
+          "trained checkpoint did not load as bf16 folded")
+    crop = np.ascontiguousarray(imgs[0][:128, :128, :128])
+    scatter.scatter_batch.launches = 0
+    t0 = time.perf_counter()
+    aff = inference.predict(crop, runner, verbose=False,
+                            patch_shape=shape, overlap=(patch // 3,) * 3)
+    t_pred = time.perf_counter() - t0
+    check(aff.shape == (3,) + crop.shape and np.isfinite(aff).all(),
+          f"predict of the trained checkpoint: {aff.shape}, finite "
+          f"{np.isfinite(aff).all()}")
+    print(f"train (c) {pths[-1]} -> load_model (bf16, folded) -> predict "
+          f"{crop.shape}: finite affinities, mean {aff.mean():.4f}, "
+          f"{t_pred:.3f} s, K1 launches {scatter.scatter_batch.launches} "
+          f"[{card}]")
+    cli_train(inference, io, imgs, labs, card, dev, tmp, patch, batch)
+    return k1_train, trainer, train_ds
+
+
 def main(argv):
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
@@ -841,7 +1188,14 @@ def main(argv):
     from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (
         affinity_channels,
     )
-    from aind_exaspim_neuron_segmentation_tpu_torch.ops import scatter
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        data_handling,
+        train,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
+        augment_device,
+        scatter,
+    )
     from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
         predigest_slab,
     )
@@ -876,6 +1230,12 @@ def main(argv):
         phase_lazy_float(inference, io, crop, seg_crop, where, tmp)
         phase_lazy_teasar(inference, io, tubes, tubes_zip, where, tmp)
         phase_cli(inference, io, runner, vol, ckpt, where, tmp)
+        phase_train_parity(train, dev, card, tmp)
+        phase_augment_parity(augment_device, dev, card)
+        train_launches, trainer, train_ds = phase_train_full(
+            train, data_handling, inference, io, scatter, card, dev, tmp)
+        if "--profile" in argv:
+            profile_train(trainer, data_handling, train_ds)
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 
@@ -887,7 +1247,8 @@ def main(argv):
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
     )]
     print(f"K1 launches: {launches} on the main path (phase 4), "
-          f"{lazy_launches} on the lazy main path (phase 9)")
+          f"{lazy_launches} on the lazy main path (phase 9), "
+          f"{train_launches} in training (phase 13: no hand kernel there)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

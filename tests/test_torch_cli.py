@@ -170,10 +170,17 @@ def test_run_equals_library_path(volume_store, tmp_path, capsys):
      "--foreground"],
     ["--device", "tpu", "swc", "--segmentation", "s.zarr", "--output",
      "o.zip"],
-    ["train", "--output", "o", "--images", "i.zarr", "--labels", "l.zarr"],
+    # (named when the port had no train command; train's own error now)
+    ["train", "--output", "o", "--images", "i.zarr", "--labels", "l.zarr",
+     "--val-images", "v.zarr"],
+    ["train", "--output", "o", "--images", "i.zarr", "--labels", "l.zarr",
+     "m.zarr"],
+    ["train", "--output", "o", "--images", "i.zarr", "--labels", "l.zarr",
+     "--val-images", "v.zarr", "--val-labels", "a.zarr", "b.zarr"],
 ], ids=["predict_no_output", "predict_two_outputs", "segment_no_input",
         "segment_plan_without_qaff", "segment_affinities_and_plan",
-        "run_foreground", "device_tpu", "no_train_command"])
+        "run_foreground", "device_tpu", "no_train_command",
+        "train_unpaired", "train_val_unpaired"])
 def test_argument_errors_exit(argv, capsys):
     with pytest.raises(SystemExit) as exc:
         main(argv)
@@ -214,3 +221,41 @@ def test_help_in_a_fresh_process_imports_no_jax():
         [sys.executable, "-m", "aind_exaspim_neuron_segmentation_tpu_torch",
          "--help"], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0 and "run" in res.stdout
+
+
+def test_train_in_a_subprocess_writes_its_line_and_a_pth(tmp_path):
+    """``train`` at a tiny size on the CPU, in its own process: the default
+    path (raw label patches -> augmentation on the device, raw u16 wire)
+    ends with the JSON line naming the run directory, which holds a
+    best-F1 ``.pth`` that ``load_model`` takes strictly."""
+    rng = np.random.default_rng(1)
+    imgs, labs = [], []
+    for k in range(2):
+        lab = np.zeros((32, 32, 32), np.uint32)
+        lab[4:28, 6 + 3 * k:20 + 3 * k, 4:28] = k + 1
+        lab[18:28, 24:30, 6:26] = 5
+        img = rng.integers(0, 90, lab.shape).astype(np.uint16)
+        img[lab > 0] += np.uint16(400)
+        for name, arr in (("img", img), ("lab", lab)):
+            path = str(tmp_path / f"{name}{k}.zarr")
+            io.write_zarr(path, arr, chunks=(16, 32, 32))
+            (imgs if name == "img" else labs).append(path)
+    out = tmp_path / "runs"
+    res = subprocess.run(
+        [sys.executable, "-m", "aind_exaspim_neuron_segmentation_tpu_torch",
+         "--device", "cpu", "train", "--output", str(out), "--images", *imgs,
+         "--labels", *labs, "--patch", "16", "--batch-size", "4",
+         "--epochs", "3", "--lr", "1e-2", "--width-multiplier", "0.25",
+         "--containment-buffer", "0", "--seed", "3"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"),
+    )
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert os.path.dirname(got["train"]) == str(out)
+    pths = sorted(os.listdir(got["train"]))
+    pths = [p for p in pths if p.startswith("UNet3d-") and p.endswith(".pth")]
+    assert pths, res.stdout
+    runner = inference.load_model(os.path.join(got["train"], pths[-1]),
+                                  device="cpu", width_multiplier=0.25)
+    assert runner.output_channels == 3

@@ -92,6 +92,19 @@ def cuda():
     return torch.device("cuda", 0)
 
 
+@pytest.fixture
+def no_tf32():
+    """TF32 off in cuDNN and cuBLAS for one case, the flags restored
+    after it."""
+    saved = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    (torch.backends.cudnn.allow_tf32,
+     torch.backends.cuda.matmul.allow_tf32) = saved
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", K1_CASES)
 def test_kernel_bit_identical_on_card(cuda, name):
@@ -150,12 +163,10 @@ def test_kernel_batch_over_launch_batch_on_card(cuda):
 
 
 @pytest.mark.gpu
-def test_predict_on_card_matches_cpu(cuda):
+def test_predict_on_card_matches_cpu(cuda, no_tf32):
     """float32 predict, TF32 off: card vs CPU within MAE 1e-5 (summation
     order differs); the card's digest equals the CPU digest of its
     floats."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     kw = dict(width_multiplier=0.25, dtype=torch.float32)
     cpu = inference.load_model(device="cpu", **kw)
     gpu = inference.load_model(device=cuda, **kw)
@@ -225,3 +236,83 @@ def test_lazy_out_path_predict_on_card_equals_dense(cuda, tmp_path):
         out_path=(str(tmp_path / "p.zarr"), str(tmp_path / "q.zarr")), **pkw)
     np.testing.assert_array_equal(lazy_plan[:], plan)
     np.testing.assert_array_equal(lazy_qaff[:], qaff)
+
+
+def pre_bn_bias(name):
+    """Conv biases that feed a train-mode BatchNorm: BatchNorm removes a
+    bias, so their true gradient is zero and what is computed is
+    rounding noise."""
+    return name.endswith(("double_conv.0.bias", "double_conv.3.bias"))
+
+
+def box_batch(seed, batch=2, shape=(16, 16, 16)):
+    """NCDHW float32 patches in [0, 0.9] and uint16 labels of three boxes
+    each (host arrays, as the datasets ship them). The intensities are
+    continuous, never clipped: equal values would tie in the max-pools,
+    whose gradient then follows the rounding of the forward."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(0, 0.5, (batch, 1) + shape).astype(np.float32)
+    y = np.zeros((batch, 1) + shape, np.uint16)
+    for b in range(batch):
+        for label in (1, 2, 3):
+            lo = rng.integers(0, np.array(shape) - 6)
+            hi = lo + rng.integers(4, 10, 3)
+            y[b, 0, lo[0]:hi[0], lo[1]:hi[1], lo[2]:hi[2]] = label
+        x[b, 0][y[b, 0] > 0] += np.float32(0.4)
+    return x, y
+
+
+@pytest.mark.gpu
+def test_train_step_on_card_matches_cpu(cuda, no_tf32, tmp_path):
+    """One float32 train step (TF32 off), width 0.25, 32^3, batch 2, from
+    the same seeded weights: loss within 1e-5 relative; per tensor the
+    gradients within 1e-3 of the tensor's max-abs gradient (cuDNN's
+    float32 gradients lie up to ~2.6e-4 of a tensor's max from float64
+    on ``chip_smoke.py``'s batch, where the CPU's lie ~1e-5), the
+    pre-BatchNorm conv biases both <= 1e-6 of the largest gradient."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning.train import (  # noqa: E501
+        Trainer,
+    )
+
+    x, y = box_batch(5, shape=(32, 32, 32))
+    out = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(str(tmp_path / str(dev)), batch_size=2,
+                     width_multiplier=0.25, use_amp=False, prefetch=False,
+                     device=dev)
+        loss, _, _ = tr.train_batch(x, y)
+        out[str(dev)] = (float(loss), {n: p.grad.cpu().numpy()
+                                       for n, p in tr.model.named_parameters()})
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out["cpu"], out[str(cuda)]
+    assert abs(l_gpu - l_cpu) / abs(l_cpu) <= 1e-5
+    top = max(np.abs(g).max() for g in g_cpu.values())
+    for name, g in g_cpu.items():
+        if pre_bn_bias(name):
+            assert np.abs(g).max() <= 1e-6 * top
+            assert np.abs(g_gpu[name]).max() <= 1e-6 * top
+        else:
+            assert np.abs(g_gpu[name] - g).max() <= 1e-3 * np.abs(g).max(), \
+                name
+
+
+@pytest.mark.gpu
+def test_augment_on_card_matches_cpu_given_the_draws(cuda):
+    """The same draws on the card and the CPU: flips, rotations and labels
+    bit-equal; noise, smoothing and contrast within max-abs 1e-6."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.ops import augment_device
+
+    rng = np.random.default_rng(8)
+    img = torch.from_numpy(rng.uniform(0, 1, (4, 1, 24, 20, 28)).astype(
+        np.float32))
+    lab = torch.from_numpy(rng.integers(0, 50, img.shape).astype(np.int32))
+    params = augment_device.draw_augment_params(
+        torch.Generator().manual_seed(5), 4, img.shape[2:])
+    params["rotate"][0] = True
+    dev_params = {k: v.to(cuda) for k, v in params.items()}
+    gi_c, gl_c = augment_device.apply_geometric(img, lab, params)
+    gi_g, gl_g = augment_device.apply_geometric(img.to(cuda), lab.to(cuda),
+                                                dev_params)
+    assert torch.equal(gi_g.cpu(), gi_c) and torch.equal(gl_g.cpu(), gl_c)
+    want = augment_device.apply_intensity(gi_c, params)
+    got = augment_device.apply_intensity(gi_g, dev_params).cpu()
+    assert (got - want).abs().max().item() <= 1e-6

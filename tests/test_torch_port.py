@@ -395,7 +395,10 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"import {PORT}.io, {PORT}.io.zarr_lite, {PORT}.io.tiff_lite\n"
         f"import {PORT}.io.stores, {PORT}.utils.img_util\n"
         f"import {PORT}.utils.retry, {PORT}.ops.predigest, {PORT}.core.device\n"
-        f"import {PORT}.__main__\n"
+        f"import {PORT}.__main__, {PORT}.machine_learning\n"
+        f"import {PORT}.machine_learning.train\n"
+        f"import {PORT}.machine_learning.data_handling\n"
+        f"import {PORT}.ops.augment_device, {PORT}.utils.util\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"
@@ -470,12 +473,19 @@ def test_port_and_chip_smoke_sources_import_no_jax():
             assert not bad, f"{path} imports {bad}"
 
 
-def test_cuda_entry_points_raise_without_cuda(monkeypatch):
+def test_cuda_entry_points_raise_without_cuda(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         inference.load_model(width_multiplier=WIDTH)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         inference.to_tensor(np.ones((4, 4, 4)))
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        Trainer,
+    )
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(str(tmp_path), width_multiplier=WIDTH)
+    assert not any(tmp_path.iterdir())
 
 
 def test_chip_smoke_fails_without_cuda():
