@@ -23,6 +23,12 @@ augmentation on the device, ``ops.augment_device``; ``python -m
 aind_exaspim_neuron_segmentation_tpu_torch train``) writes the best-F1
 ``.pth`` that ``load_model`` reads.
 
+Several devices or hosts run one job through ``parallel`` and
+``torch.distributed`` (one process per device): ``predict_sharded``
+splits the patch grid over a rank mesh with halo exchange, and
+``postprocess.segment_streaming_sharded`` / ``skeletonize_sharded``
+split the tail; the CLI's ``--distributed`` chains them.
+
 The JAX package ``aind_exaspim_neuron_segmentation_tpu`` is the numerical
 reference; this package imports nothing from it and never imports JAX.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
@@ -37,6 +43,7 @@ def __getattr__(name):
     import importlib
 
     if name in ("core", "cuda_build", "inference", "io", "machine_learning",
-                "models", "native", "ops", "postprocess", "utils"):
+                "models", "native", "ops", "parallel", "postprocess",
+                "utils"):
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -20,6 +20,18 @@ and the streaming segmentation throughout). The model, the digest of
 float affinities and training run on ``--device`` (before the
 subcommand; default ``cuda``, which raises without a card). Each command
 prints one JSON line as its result.
+
+``--distributed`` (``predict / segment / swc / run``): every process of
+a job runs the same command, the job taken from the environment
+(``parallel.initialize_distributed``: torchrun's ``MASTER_ADDR`` /
+``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``, or the JAX package's
+``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID``), each process driving one device; ``--workdir`` and
+the outputs must lie on a filesystem every process sees::
+
+    torchrun --nproc_per_node 2 \\
+        -m aind_exaspim_neuron_segmentation_tpu_torch --device cpu \\
+        run --distributed --input vol.zarr --workdir /tmp/w --output o.zip
 """
 
 import argparse
@@ -29,8 +41,25 @@ import time
 
 
 def _emit(obj):
-    """Print the command's ONE machine-readable result line."""
+    """Print the command's ONE machine-readable result line.
+
+    Under ``--distributed`` every process runs the same command; only
+    rank 0 prints the line.
+    """
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_rank():
+        return
     print(json.dumps(obj))
+
+
+def _init_distributed(args):
+    """Join the job's process group (``--distributed``) before any work;
+    a single process joins nothing."""
+    if args.distributed:
+        from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+        parallel.initialize_distributed(device=args.device)
 
 
 def _triple(text):
@@ -71,13 +100,13 @@ def cmd_predict(args):
     """Volume -> affinity Zarr store (or digest plan + qaff stores)."""
     from aind_exaspim_neuron_segmentation_tpu_torch import inference
 
+    _init_distributed(args)
     runner = inference.load_model(
         args.model, affinity_mode=not args.foreground, device=args.device,
         width_multiplier=args.width_multiplier,
     )
     img = _read(args.input)
-    inference.predict(
-        img, runner,
+    kw = dict(
         affinity_mode=not args.foreground,
         batch_size=args.batch_size,
         brightness_clip=args.brightness_clip,
@@ -88,8 +117,16 @@ def cmd_predict(args):
         out_path=(tuple(args.predigest_out) if args.predigest_out
                   else args.output),
         predigest=bool(args.predigest_out),
-        verbose=not args.quiet,
     )
+    if args.distributed:
+        # the sliding window sharded over every rank of the job; each
+        # writes its own Z rows into the shared store
+        from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+        parallel.predict_sharded(img, runner, mesh=parallel.make_mesh(),
+                                 **kw)
+    else:
+        inference.predict(img, runner, verbose=not args.quiet, **kw)
     _emit({"predict": args.predigest_out or args.output})
 
 
@@ -97,30 +134,54 @@ def cmd_segment(args):
     """Affinities (float store or digest pair) -> label Zarr store."""
     from aind_exaspim_neuron_segmentation_tpu_torch import inference
 
+    _init_distributed(args)
     if args.plan:
         affs = (_read(args.plan), _read(args.qaff))
     else:
         affs = _read(args.affinities)
-    inference.affinities_to_segmentation(
-        affs,
+    kw = dict(
         agglomeration_thresholds=tuple(args.thresholds),
         min_segment_size=args.min_size,
         out_path=args.output,
         verbose=not args.quiet,
         device=args.device,
     )
-    _emit({"segment": args.output})
+    if args.distributed:
+        from aind_exaspim_neuron_segmentation_tpu_torch import postprocess
+
+        stats = {}
+        postprocess.segment_streaming_sharded(affs, stats_out=stats, **kw)
+        # transport vs compute, per rank (the stats_out ledger)
+        _emit({"segment": args.output, "protocol": stats.get("ranks")})
+    else:
+        inference.affinities_to_segmentation(affs, **kw)
+        _emit({"segment": args.output})
 
 
 def cmd_swc(args):
     """Segmentation store -> zipped SWC skeletons."""
     from aind_exaspim_neuron_segmentation_tpu_torch import inference
 
-    skeletons = inference.segmentation_to_zipped_swcs(
-        _read(args.segmentation), args.output,
-        anisotropy=tuple(args.anisotropy),
-    )
-    _emit({"swc": args.output, "n": len(skeletons)})
+    _init_distributed(args)
+    seg = _read(args.segmentation)
+    if args.distributed:
+        from aind_exaspim_neuron_segmentation_tpu_torch import postprocess
+
+        # each rank keeps only ITS labels' skeletons; rank 0 writes the
+        # zip from the ranks' SWC texts
+        stats = {}
+        skeletons = postprocess.skeletonize_sharded(
+            seg, anisotropy=tuple(args.anisotropy), zip_path=args.output,
+            stats_out=stats,
+        )
+        _emit({"swc": args.output,
+               "n": stats.get("n_skeletons", len(skeletons)),
+               "protocol": stats.get("ranks")})
+    else:
+        skeletons = inference.segmentation_to_zipped_swcs(
+            seg, args.output, anisotropy=tuple(args.anisotropy)
+        )
+        _emit({"swc": args.output, "n": len(skeletons)})
 
 
 def cmd_run(args):
@@ -128,9 +189,20 @@ def cmd_run(args):
 
     The beyond-RAM configuration: the digests and the segmentation live
     in Zarr stores under ``--workdir``, never dense in host RAM.
-    """
-    from aind_exaspim_neuron_segmentation_tpu_torch import inference
 
+    ``--distributed``: every stage runs across the ranks of the job
+    (same command on every process; ``--workdir`` on a filesystem every
+    process sees): the rank-sharded digest predict
+    (``parallel.predict_sharded``), the multi-process streaming
+    segmentation and the distributed TEASAR, rank 0 writing the zip.
+    """
+    from aind_exaspim_neuron_segmentation_tpu_torch import (
+        inference,
+        parallel,
+        postprocess,
+    )
+
+    _init_distributed(args)
     os.makedirs(args.workdir, exist_ok=True)
     plan_p = os.path.join(args.workdir, "plan.zarr")
     qaff_p = os.path.join(args.workdir, "qaff.zarr")
@@ -142,33 +214,58 @@ def cmd_run(args):
     )
     img = _read(args.input)
     t0 = time.time()
-    plan, qaff = inference.predict(
-        img, runner, batch_size=args.batch_size,
+    predict_kw = dict(
+        batch_size=args.batch_size,
         brightness_clip=args.brightness_clip,
         patch_shape=args.patch, overlap=args.overlap, trim=args.trim,
         blend_mode=args.blend, predigest=True, out_path=(plan_p, qaff_p),
-        verbose=not args.quiet,
     )
+    if args.distributed:
+        plan, qaff = parallel.predict_sharded(
+            img, runner, mesh=parallel.make_mesh(), **predict_kw
+        )
+    else:
+        plan, qaff = inference.predict(
+            img, runner, verbose=not args.quiet, **predict_kw
+        )
     t1 = time.time()
-    seg = inference.affinities_to_segmentation(
-        (plan, qaff),
+    seg_kw = dict(
         agglomeration_thresholds=tuple(args.thresholds),
         min_segment_size=args.min_size,
         out_path=seg_p,
         verbose=not args.quiet,
     )
+    seg_stats, sk_stats = {}, {}
+    if args.distributed:
+        seg = postprocess.segment_streaming_sharded(
+            (plan, qaff), stats_out=seg_stats, **seg_kw
+        )
+    else:
+        seg = inference.affinities_to_segmentation((plan, qaff), **seg_kw)
     t2 = time.time()
-    inference.segmentation_to_zipped_swcs(
-        seg, args.output, anisotropy=tuple(args.anisotropy)
-    )
+    if args.distributed:
+        postprocess.skeletonize_sharded(
+            seg, anisotropy=tuple(args.anisotropy), zip_path=args.output,
+            stats_out=sk_stats,
+        )
+    else:
+        inference.segmentation_to_zipped_swcs(
+            seg, args.output, anisotropy=tuple(args.anisotropy)
+        )
     t3 = time.time()
-    _emit({
+    out = {
         "run": args.output,
         "stages_s": {"predict": round(t1 - t0, 1),
                      "segment": round(t2 - t1, 1),
                      "swc": round(t3 - t2, 1)},
         "workdir": args.workdir,
-    })
+    }
+    if args.distributed:
+        # per-rank per-pass walls and hub payload bytes of both
+        # distributed stages
+        out["segment_protocol"] = seg_stats.get("ranks")
+        out["swc_protocol"] = sk_stats.get("ranks")
+    _emit(out)
 
 
 def cmd_train(args):
@@ -246,6 +343,12 @@ def build_parser():
     )
     _add_predict_args(p)
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="shard the sliding window over every rank of the job "
+                        "(same command on every process; each writes its own "
+                        "Z rows into the shared --output store; job from "
+                        "MASTER_ADDR/WORLD_SIZE/RANK or "
+                        "JAX_COORDINATOR_ADDRESS etc.)")
     p.set_defaults(fn=cmd_predict)
 
     p = sub.add_parser("segment",
@@ -258,12 +361,19 @@ def build_parser():
                    default=(0.6, 0.8, 0.9))
     p.add_argument("--min-size", type=int, default=100)
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="run the streaming engine across the processes of the "
+                        "job (same command on every process)")
     p.set_defaults(fn=cmd_segment)
 
     p = sub.add_parser("swc", help="segmentation -> zipped SWC skeletons")
     p.add_argument("--segmentation", required=True)
     p.add_argument("--output", required=True, help="output .zip path")
     p.add_argument("--anisotropy", type=float, nargs=3, default=(1, 1, 1))
+    p.add_argument("--distributed", action="store_true",
+                   help="Z-partitioned bbox scan + label-partitioned TEASAR "
+                        "across the processes of the job (rank 0 writes the "
+                        "zip)")
     p.set_defaults(fn=cmd_swc)
 
     p = sub.add_parser(
@@ -279,6 +389,11 @@ def build_parser():
     p.add_argument("--min-size", type=int, default=100)
     p.add_argument("--anisotropy", type=float, nargs=3, default=(1, 1, 1))
     p.add_argument("--quiet", action="store_true")
+    p.add_argument("--distributed", action="store_true",
+                   help="run every stage across the processes of the job "
+                        "(rank-sharded predict, multi-process segment + "
+                        "TEASAR; --workdir on a shared filesystem; rank 0 "
+                        "writes the zip)")
     p.set_defaults(fn=cmd_run)
 
     p = sub.add_parser("train", help="train UNet3D on volume/label pairs")

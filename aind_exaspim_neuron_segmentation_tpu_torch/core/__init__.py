@@ -2,10 +2,15 @@
 
 from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (  # noqa: F401
     affinity_channels,
+    get_affinity_channels,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (  # noqa: F401
+    add_padding,
     count_patches,
     generate_patch_starts,
+    get_patch,
+    get_slices,
+    is_contained,
     patch_grid_ranges,
     patch_starts_array,
 )
@@ -13,5 +18,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (  # noqa:
     DEFAULT_PERCENTILES,
     clip_brightness,
     normalize,
+    normalize_device,
+    preprocess_device,
     streaming_percentile,
 )

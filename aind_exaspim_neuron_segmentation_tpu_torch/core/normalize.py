@@ -1,16 +1,20 @@
-"""Brightness clipping and percentile min-max normalization (host, numpy).
+"""Brightness clipping and percentile min-max normalization.
 
     x <- min(x, brightness_clip)
     mn, mx = percentile(x, (1, 99.9))          # linear interpolation
     x <- clip((x - mn) / (mx - mn + 1e-8), 0, 1)
 
-``np.percentile`` is used on purpose: ``torch.quantile`` refuses inputs
+The host path uses ``np.percentile``; ``torch.quantile`` refuses inputs
 above 2**24 elements, far below a real volume. A lazy (chunked) volume
 gets the same percentiles from :func:`streaming_percentile`, an exact
-radix select over Z slabs that never holds the volume.
+radix select over Z slabs that never holds the volume. The device path
+(:func:`normalize_device`, :func:`preprocess_device`) takes a tensor on
+any device and gets its percentiles by the same radix select on that
+device (:func:`..parallel.stats.percentile_device`).
 """
 
 import numpy as np
+import torch
 
 DEFAULT_PERCENTILES = (1, 99.9)
 
@@ -27,6 +31,28 @@ def normalize(img, apply_clip=True, percentiles=DEFAULT_PERCENTILES):
     if apply_clip:
         return np.clip(img, 0, 1)
     return img
+
+
+def normalize_device(img, apply_clip=True, percentiles=DEFAULT_PERCENTILES):
+    """Percentile min-max normalize a tensor on its own device, in float32
+    (the counterpart of the JAX package's ``normalize_jax``)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.parallel.stats import (
+        percentile_device,
+    )
+
+    img = img.to(torch.float32)
+    mn, mx = percentile_device(img, tuple(percentiles))
+    img = (img - mn) / (mx - mn + 1e-8)
+    if apply_clip:
+        img = torch.clamp(img, 0.0, 1.0)
+    return img
+
+
+def preprocess_device(img, brightness_clip, percentiles=DEFAULT_PERCENTILES):
+    """Brightness clip + :func:`normalize_device` of a tensor on its device
+    (the counterpart of the JAX package's ``preprocess_jax``)."""
+    img = torch.clamp(img.to(torch.float32), max=float(brightness_clip))
+    return normalize_device(img, apply_clip=True, percentiles=percentiles)
 
 
 def _float_keys_np(x):

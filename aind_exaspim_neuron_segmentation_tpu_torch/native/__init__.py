@@ -2,9 +2,12 @@
 
 Watershed, agglomeration and the label remaps that the reference takes
 from waterz and fastremap, the slab-streaming segmenter
-(:class:`StreamSegmenter`), and the codecs behind ``io`` (Blosc1, raw
-zstd, CRC-32C, JPEG), compiled at first use by :mod:`.build`. Every
-function takes and returns numpy arrays or bytes on the host.
+(:class:`StreamSegmenter`, with its distributed mode) and the
+distributed merge (:func:`merge_rag_parts`, :func:`route_rag_parts`,
+:func:`merge_rag_local`, :func:`compose_rag_lut`), and the codecs behind
+``io`` (Blosc1, raw zstd, CRC-32C, JPEG), compiled at first use by
+:mod:`.build`. Every function takes and returns numpy arrays or bytes on
+the host.
 """
 
 import ctypes
@@ -78,6 +81,63 @@ def _lib():
         lib.exa_streamseg_map.argtypes = [
             ctypes.c_void_p, u32p, ctypes.c_int64, u32p,
         ]
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        lib.exa_streamseg_set_distributed.restype = ctypes.c_int64
+        lib.exa_streamseg_set_distributed.argtypes = [
+            ctypes.c_void_p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_local_done.restype = ctypes.c_int64
+        lib.exa_streamseg_local_done.argtypes = [ctypes.c_void_p]
+        lib.exa_streamseg_get_piece_table.restype = ctypes.c_int64
+        lib.exa_streamseg_get_piece_table.argtypes = [
+            ctypes.c_void_p, u64p, u64p,
+        ]
+        lib.exa_streamseg_get_boundary.restype = ctypes.c_int64
+        lib.exa_streamseg_get_boundary.argtypes = [
+            ctypes.c_void_p, u32p, u8p, u32p, u8p,
+        ]
+        lib.exa_streamseg_set_ws.restype = ctypes.c_int64
+        lib.exa_streamseg_set_ws.argtypes = [
+            ctypes.c_void_p, u32p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_rag_flush.restype = ctypes.c_int64
+        lib.exa_streamseg_rag_flush.argtypes = [ctypes.c_void_p, u32p]
+        lib.exa_streamseg_rag_export_size.restype = ctypes.c_int64
+        lib.exa_streamseg_rag_export_size.argtypes = [ctypes.c_void_p]
+        lib.exa_streamseg_rag_export.restype = ctypes.c_int64
+        lib.exa_streamseg_rag_export.argtypes = [
+            ctypes.c_void_p, u8p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_set_lut.restype = ctypes.c_int64
+        lib.exa_streamseg_set_lut.argtypes = [
+            ctypes.c_void_p, u32p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_merge_parts.restype = ctypes.c_int64
+        lib.exa_streamseg_merge_parts.argtypes = [
+            u8p, i64p, ctypes.c_int64, ctypes.c_int64, u64p, f32p,
+            ctypes.c_int64, ctypes.c_int32, ctypes.c_int64, u32p,
+        ]
+        lib.exa_ragroute_new.restype = ctypes.c_void_p
+        lib.exa_ragroute_new.argtypes = [
+            ctypes.POINTER(u8p), i64p, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_int64,
+        ]
+        lib.exa_ragroute_free.restype = None
+        lib.exa_ragroute_free.argtypes = [ctypes.c_void_p]
+        lib.exa_ragroute_sizes.restype = ctypes.c_int64
+        lib.exa_ragroute_sizes.argtypes = [ctypes.c_void_p, i64p]
+        lib.exa_ragroute_fill.restype = ctypes.c_int64
+        lib.exa_ragroute_fill.argtypes = [ctypes.c_void_p, u8p, i64p]
+        lib.exa_streamseg_merge_local.restype = ctypes.c_int64
+        lib.exa_streamseg_merge_local.argtypes = [
+            u8p, ctypes.c_int64, ctypes.c_int64, f32p, ctypes.c_int64,
+            ctypes.c_int32, u32p, ctypes.c_int64,
+        ]
+        lib.exa_streamseg_compose_lut.restype = ctypes.c_int64
+        lib.exa_streamseg_compose_lut.argtypes = [
+            ctypes.c_int64, u64p, u32p, ctypes.c_int64, ctypes.c_int64,
+            u32p,
+        ]
         lib.exa_blosc_info.restype = ctypes.c_int64
         lib.exa_blosc_info.argtypes = [u8p, ctypes.c_int64, i64p]
         lib.exa_blosc_decompress.restype = ctypes.c_int64
@@ -127,6 +187,10 @@ def _f32(arr):
 
 def _i64(arr):
     return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
+
+
+def _u64(arr):
+    return arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64))
 
 
 def _thresholds(thresholds):
@@ -552,3 +616,237 @@ class StreamSegmenter:
         if rc < 0:
             raise RuntimeError("streamseg map before merge")
         return out
+
+    # -- distributed mode (multi-rank Z partition; see
+    # postprocess/distributed.py for the full protocol). The engine's
+    # ``shape`` is then the rank's LOCAL (nz, H, W) extent and
+    # ``z_offset`` the global Z index of local plane 0. --
+
+    def set_distributed(self, z_offset):
+        """Enable distributed mode (global scan offset ``z_offset``)."""
+        rc = self._lib.exa_streamseg_set_distributed(
+            self._h, int(z_offset)
+        )
+        if rc < 0:
+            raise RuntimeError("set_distributed must precede feed")
+
+    def local_done(self):
+        """Finish local pass 1; returns the rank's piece-table export.
+
+        ``(first_fg, fg_count, first_root, first_plan, last_root,
+        last_plan)``: per-local-root u64 global first-foreground scan
+        index (``~0`` = none) and foreground count, plus both boundary
+        planes as (H*W,) root-index+1 / plan-byte arrays.
+        """
+        n = self._lib.exa_streamseg_local_done(self._h)
+        if n < 0:
+            raise RuntimeError(
+                "local_done requires distributed mode and a complete "
+                "pass 1"
+            )
+        first_fg = np.empty(n, np.uint64)
+        fg_count = np.empty(n, np.uint64)
+        self._lib.exa_streamseg_get_piece_table(
+            self._h, _u64(first_fg), _u64(fg_count)
+        )
+        hw = self.shape[1] * self.shape[2]
+        first_root = np.empty(hw, np.uint32)
+        first_plan = np.empty(hw, np.uint8)
+        last_root = np.empty(hw, np.uint32)
+        last_plan = np.empty(hw, np.uint8)
+        self._lib.exa_streamseg_get_boundary(
+            self._h, _u32(first_root), _u8p(first_plan),
+            _u32(last_root), _u8p(last_plan),
+        )
+        return (first_fg, fg_count, first_root, first_plan, last_root,
+                last_plan)
+
+    def set_ws(self, ws_of_root, n_fragments):
+        """Install rank 0's root -> global fragment numbering."""
+        ws = np.ascontiguousarray(ws_of_root, dtype=np.uint32)
+        rc = self._lib.exa_streamseg_set_ws(
+            self._h, _u32(ws), int(n_fragments)
+        )
+        if rc < 0:
+            raise RuntimeError("set_ws requires local_done")
+        self.n_fragments = int(n_fragments)
+
+    def rag_flush(self, next_plane=None):
+        """Flush pass 2; ``next_plane``: (H*W,) u32 global fragment ids
+        of the next rank's first plane (None for the last rank)."""
+        if next_plane is None:
+            ptr = None
+        else:
+            next_plane = np.ascontiguousarray(next_plane, dtype=np.uint32)
+            ptr = _u32(next_plane.ravel())
+        rc = self._lib.exa_streamseg_rag_flush(self._h, ptr)
+        if rc < 0:
+            raise RuntimeError("rag_flush requires a complete rag_feed")
+
+    def rag_export(self):
+        """Serialize (and free) the local RAG; returns bytes."""
+        size = self._lib.exa_streamseg_rag_export_size(self._h)
+        if size < 0:
+            raise RuntimeError("rag_export requires rag_flush")
+        out = np.empty(size, np.uint8)
+        rc = self._lib.exa_streamseg_rag_export(self._h, _u8p(out), size)
+        if rc < 0:
+            raise RuntimeError("rag serialization failed")
+        return out[:rc].tobytes()
+
+    def set_lut(self, lut_ws, n_segments):
+        """Install rank 0's fragment -> final-label lut; enables map."""
+        lut = np.ascontiguousarray(lut_ws, dtype=np.uint32)
+        if lut.size != (self.n_fragments or 0) + 1:
+            raise ValueError(
+                f"lut has {lut.size} entries, expected K+1 = "
+                f"{(self.n_fragments or 0) + 1}"
+            )
+        rc = self._lib.exa_streamseg_set_lut(
+            self._h, _u32(lut), int(n_segments)
+        )
+        if rc < 0:
+            raise RuntimeError("set_lut requires set_ws")
+        self.n_segments = int(n_segments)
+
+
+def merge_rag_parts(parts, n_fragments, frag_fg, thresholds,
+                    quantile_pct=85, min_segment_size=0):
+    """Rank 0's merge over the ranks' serialized RAG parts.
+
+    ``parts``: list of ``StreamSegmenter.rag_export`` payloads in RANK
+    ORDER (ascending Z ranges -- the order IS the global scan order);
+    ``frag_fg``: (K+1,) u64 per-fragment foreground voxel counts.
+    Returns ``(lut_ws, n_segments)`` with ``lut_ws`` the (K+1,) u32
+    fragment -> final-label table (shared merge loop + min-size filter
+    + first-appearance renumber; bit-identical to the single-process
+    engine by construction).
+    """
+    buf = np.concatenate(
+        [np.frombuffer(p, np.uint8) for p in parts]
+        + [np.zeros(1, np.uint8)]  # keep the pointer valid when empty
+    )
+    offsets = np.zeros(len(parts) + 1, np.int64)
+    np.cumsum([len(p) for p in parts], out=offsets[1:])
+    frag_fg = np.ascontiguousarray(frag_fg, dtype=np.uint64)
+    k = int(n_fragments)
+    if frag_fg.size != k + 1:
+        raise ValueError(f"frag_fg has {frag_fg.size} entries, need K+1")
+    th = np.ascontiguousarray(thresholds, dtype=np.float32)
+    if len(th) == 0 or np.any(np.diff(th) < 0):
+        raise ValueError("thresholds must be non-empty and ascending")
+    lut = np.empty(k + 1, np.uint32)
+    n = _lib().exa_streamseg_merge_parts(
+        _u8p(buf), _i64(offsets), len(parts), k, _u64(frag_fg),
+        _f32(th), len(th), int(quantile_pct), int(min_segment_size),
+        _u32(lut),
+    )
+    if n < 0:
+        raise RuntimeError(f"merge_parts failed (rc={n})")
+    return lut, int(n)
+
+
+def route_rag_parts(parts, n_fragments, n_owners):
+    """Rank 0: partition the ranks' serialized RAG parts by connected
+    component across ``n_owners`` merge workers.
+
+    The component-partitioned counterpart of :func:`merge_rag_parts`:
+    instead of rebuilding the global RAG, the parts are scanned for
+    edge endpoints only, components are greedily assigned to owners by
+    edge load (deterministic), and each serialized edge record is
+    routed -- in global stream order -- to its component's owner.
+    Returns ``n_owners`` self-contained payloads for
+    :func:`merge_rag_local` (an owner with no components gets an empty
+    8-byte payload). ``parts`` must be in RANK ORDER.
+    """
+    lib = _lib()
+    if not parts:
+        raise ValueError("need at least one RAG part")
+    arrs = [np.frombuffer(p, np.uint8) for p in parts]
+    u8pp = ctypes.POINTER(ctypes.c_uint8)
+    ptrs = (u8pp * len(arrs))(*[a.ctypes.data_as(u8pp) for a in arrs])
+    sizes = np.array([a.size for a in arrs], np.int64)
+    h = lib.exa_ragroute_new(
+        ptrs, _i64(sizes), len(arrs), int(n_fragments), int(n_owners)
+    )
+    if not h:
+        raise RuntimeError("malformed serialized RAG parts")
+    try:
+        owner_bytes = np.empty(n_owners, np.int64)
+        lib.exa_ragroute_sizes(h, _i64(owner_bytes))
+        offsets = np.zeros(n_owners + 1, np.int64)
+        np.cumsum(owner_bytes, out=offsets[1:])
+        out = np.empty(int(offsets[-1]), np.uint8)
+        rc = lib.exa_ragroute_fill(h, _u8p(out), _i64(offsets))
+        if rc < 0:
+            raise RuntimeError(f"RAG routing failed (rc={rc})")
+    finally:
+        lib.exa_ragroute_free(h)
+    return [
+        out[offsets[o]: offsets[o + 1]].tobytes() for o in range(n_owners)
+    ]
+
+
+def merge_rag_local(routed, n_fragments, thresholds, quantile_pct=85):
+    """One rank's merge over its routed component payload.
+
+    Runs the shared merge loop (rag.hpp run_merge, fragment ids
+    remapped to a dense local range) over the components
+    :func:`route_rag_parts` assigned to this rank and returns the
+    executed ``(keep, drop)`` unions up to the LAST threshold as an
+    ``(n, 2)`` uint32 array in GLOBAL fragment ids -- the exact replay
+    prefix :func:`compose_rag_lut` needs (the reference keeps only the
+    final threshold's labeling, reference inference.py:229-233).
+    """
+    buf = np.frombuffer(routed, np.uint8)
+    if buf.size < 8:
+        raise ValueError("routed payload too short")
+    th = np.ascontiguousarray(thresholds, dtype=np.float32)
+    if len(th) == 0 or np.any(np.diff(th) < 0):
+        raise ValueError("thresholds must be non-empty and ascending")
+    # Unions are bounded by the fragment count (each union drops one
+    # fragment), not the routed record count -- records repeat (a, b)
+    # across rank parts, so the header alone over-sizes the buffer by
+    # 8 B per duplicate at multi-million-edge scale.
+    cap = min(
+        int(np.frombuffer(routed[:8], np.uint64)[0]), int(n_fragments)
+    )
+    pairs = np.empty((max(cap, 1), 2), np.uint32)
+    n = _lib().exa_streamseg_merge_local(
+        _u8p(buf), buf.size, int(n_fragments), _f32(th), len(th),
+        int(quantile_pct), _u32(pairs.ravel()), cap,
+    )
+    if n < 0:
+        raise RuntimeError(f"local merge failed (rc={n})")
+    return pairs[:n].copy()
+
+
+def compose_rag_lut(n_fragments, frag_fg, pairs_list, min_segment_size=0):
+    """Rank 0: compose the ranks' merge pairs into the final lut.
+
+    ``pairs_list``: the ranks' :func:`merge_rag_local` outputs (any
+    order -- components touch disjoint fragments). Returns
+    ``(lut_ws, n_segments)`` exactly like :func:`merge_rag_parts`
+    (shared min-size filter + first-appearance renumber tail).
+    """
+    k = int(n_fragments)
+    frag_fg = np.ascontiguousarray(frag_fg, dtype=np.uint64)
+    if frag_fg.size != k + 1:
+        raise ValueError(f"frag_fg has {frag_fg.size} entries, need K+1")
+    chunks = [
+        np.ascontiguousarray(p, dtype=np.uint32).reshape(-1, 2)
+        for p in pairs_list
+    ]
+    pairs = (
+        np.concatenate(chunks) if chunks else np.empty((0, 2), np.uint32)
+    )
+    if not pairs.flags.c_contiguous:
+        pairs = np.ascontiguousarray(pairs)
+    lut = np.empty(k + 1, np.uint32)
+    n = _lib().exa_streamseg_compose_lut(
+        k, _u64(frag_fg), _u32(pairs.ravel()), len(pairs),
+        int(min_segment_size), _u32(lut),
+    )
+    if n < 0:
+        raise RuntimeError(f"lut composition failed (rc={n})")
+    return lut, int(n)

@@ -152,7 +152,8 @@ def forward_batch(module, volume, starts, valid, *, patch_shape, trim,
 
 
 def accumulate_predictions(module, volume, starts, valid, *, patch_shape,
-                           trim, batch_size, out_channels, windows=None):
+                           trim, batch_size, out_channels, windows=None,
+                           on_batch=None):
     """Blend every patch of ``starts`` into a fresh accumulator.
 
     ``volume``: (D, H, W) float32 slab on the device, already normalized
@@ -160,6 +161,8 @@ def accumulate_predictions(module, volume, starts, valid, *, patch_shape,
     ``batch_size`` (pad with any in-bounds start). ``valid``: (N,) float32
     host array, 0.0 for padding starts. Returns (out_channels, D, H, W)
     float32 accumulated (unweighted) predictions on the device.
+    ``on_batch(i, probs)``, if given, sees each batch's probabilities
+    after they are added (``i``: the index of the batch's first start).
     """
     n = starts.shape[0]
     if n % batch_size:
@@ -179,6 +182,8 @@ def accumulate_predictions(module, volume, starts, valid, *, patch_shape,
         )
         scatter_batch(acc, probs, b_starts, trim=trim,
                       host_starts=starts[i:i + batch_size])
+        if on_batch is not None:
+            on_batch(i, probs)
     return acc
 
 

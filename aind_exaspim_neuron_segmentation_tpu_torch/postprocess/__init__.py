@@ -9,7 +9,11 @@ reference's external-dependency call sites:
 * :func:`skeletonize` -- ``kimimaro.skeletonize`` (dense arrays and lazy
   label handles);
 * :func:`segment_streaming` -- the beyond-RAM segmentation of a lazy
-  affinity handle or digest-store pair (:mod:`.streaming`).
+  affinity handle or digest-store pair (:mod:`.streaming`);
+* :func:`segment_streaming_sharded` / :func:`skeletonize_sharded` -- the
+  same segmentation and TEASAR split over the processes of a
+  ``torch.distributed`` job, bit-identical to one process
+  (:mod:`.distributed`).
 """
 
 import numpy as np
@@ -26,6 +30,10 @@ from aind_exaspim_neuron_segmentation_tpu_torch.postprocess.skeleton import (  #
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.postprocess.streaming import (  # noqa: F401
     segment_streaming,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.postprocess.distributed import (  # noqa: F401,E501
+    segment_streaming_sharded,
+    skeletonize_sharded,
 )
 
 

@@ -144,17 +144,23 @@ def skeletonize(
     anisotropy=(1.0, 1.0, 1.0),
     fix_borders=True,
     fill_holes=True,
+    max_paths=None,
+    parallel=1,
+    slab_planes=64,
 ):
     """TEASAR-skeletonize every labeled segment.
 
     Parameter names and defaults mirror the kimimaro call of the
-    reference, which runs one thread (``parallel=1``). Returns
-    ``{segment_id: Skeleton}``; a segment with several connected components
-    gives one merged Skeleton (vertices concatenated), as kimimaro does.
-    ``segmentation`` is an array-like (numpy, a CPU tensor, a list) or a
-    lazy chunked handle (``io.LazyArray``), which streams through
-    :func:`skeletonize_lazy`.
+    reference. ``parallel``: the engine's worker threads over connected
+    components; the output is the same for any count. ``max_paths`` is
+    accepted for parity and unused: the trace loop runs to coverage.
+    Returns ``{segment_id: Skeleton}``; a segment with several connected
+    components gives one merged Skeleton (vertices concatenated), as
+    kimimaro does. ``segmentation`` is an array-like (numpy, a CPU tensor,
+    a list) or a lazy chunked handle (``io.LazyArray``), which streams
+    through :func:`skeletonize_lazy` in Z slabs of ``slab_planes``.
     """
+    del max_paths
     # Lazy chunked handles (no dense conversion, chunk reads) stream
     # through the crop engine; anything array-like densifies.
     if not isinstance(
@@ -168,7 +174,8 @@ def skeletonize(
             soma_invalidation_scale=soma_invalidation_scale,
             soma_invalidation_const=soma_invalidation_const,
             anisotropy=anisotropy, fix_borders=fix_borders,
-            fill_holes=fill_holes,
+            fill_holes=fill_holes, parallel=parallel,
+            slab_planes=slab_planes,
         )
     seg = np.ascontiguousarray(segmentation, dtype=np.uint32)
     if seg.ndim != 3:
@@ -178,6 +185,7 @@ def skeletonize(
         scale, const, pdrf_exponent, pdrf_scale,
         soma_detection_threshold, soma_acceptance_threshold,
         soma_invalidation_scale, soma_invalidation_const, anisotropy,
+        parallel,
         # kimimaro black_border semantics: volume faces count as
         # background only for single-label volumes.
         black_border=(seg.min() == seg.max()),
@@ -195,14 +203,14 @@ def skeletonize(
 def _params_array(scale, const, pdrf_exponent, pdrf_scale,
                   soma_detection_threshold, soma_acceptance_threshold,
                   soma_invalidation_scale, soma_invalidation_const,
-                  anisotropy, black_border):
+                  anisotropy, parallel, black_border):
     return np.asarray(
         [
             scale, const, pdrf_exponent, pdrf_scale,
             soma_detection_threshold, soma_acceptance_threshold,
             soma_invalidation_scale, soma_invalidation_const,
             anisotropy[0], anisotropy[1], anisotropy[2],
-            1,  # worker threads, as the reference's kimimaro call
+            max(int(parallel), 1),
             1.0 if black_border else 0.0,
         ],
         dtype=np.float64,
@@ -266,6 +274,7 @@ def skeletonize_lazy(
     anisotropy=(1.0, 1.0, 1.0),
     fix_borders=True,
     fill_holes=True,
+    parallel=1,
     slab_planes=64,
 ):
     """TEASAR-skeletonize a lazy (zarr/N5) label handle beyond RAM.
@@ -282,12 +291,14 @@ def skeletonize_lazy(
     """
     if labels.ndim != 3:
         raise ValueError(f"expected 3D label handle, got {labels.shape}")
-    bbox, counts, gmin, gmax = bbox_scan(labels, slab_planes)
+    bbox, counts, gmin, gmax = bbox_scan(
+        labels, 0, labels.shape[0], slab_planes
+    )
     params = _params_array(
         scale, const, pdrf_exponent, pdrf_scale,
         soma_detection_threshold, soma_acceptance_threshold,
         soma_invalidation_scale, soma_invalidation_const, anisotropy,
-        black_border=(gmin == gmax),
+        parallel, black_border=(gmin == gmax),
     )
     labs = [lab for lab in range(1, len(counts)) if counts[lab]]
     return _merge_pieces(
@@ -295,14 +306,17 @@ def skeletonize_lazy(
     )
 
 
-def bbox_scan(labels, slab_planes=64):
-    """Slab-streamed per-label bbox discovery over the whole label store.
+def bbox_scan(labels, z_lo, z_hi, slab_planes=64):
+    """Slab-streamed per-label bbox discovery over planes [z_lo, z_hi)
+    (the whole store: ``z_lo=0, z_hi=labels.shape[0]``).
 
     Returns ``(bbox, counts, gmin, gmax)``: ``bbox`` is
     ``(n_labels + 1, 6)`` int64 with mins in columns 0/2/4
     (INT64_MAX when unseen) and maxs in columns 1/3/5 (-1 unseen),
     ``counts`` the per-label voxel counts, ``gmin`` / ``gmax`` the
-    smallest and largest label.
+    smallest and largest label (None for an empty range). Partials of
+    disjoint Z ranges merge by elementwise min/max and count sums, which
+    is how :func:`..distributed.skeletonize_sharded` splits the scan.
     """
     d, h, w = labels.shape
     lib = _bind(build.load())
@@ -313,8 +327,8 @@ def bbox_scan(labels, slab_planes=64):
     bbox[:, 1::2] = -1
     counts = np.zeros(1, np.int64)
     gmin, gmax = None, None
-    for lo in range(0, d, slab_planes):
-        hi = min(lo + slab_planes, d)
+    for lo in range(z_lo, z_hi, slab_planes):
+        hi = min(lo + slab_planes, z_hi)
         slab = np.ascontiguousarray(labels[lo:hi], dtype=np.uint32)
         smax = int(slab.max())
         gmin = int(slab.min()) if gmin is None else min(gmin, int(slab.min()))
@@ -345,7 +359,8 @@ def crop_pass(labels, labs, bbox, params, fix_borders, fill_holes):
 
     The pad guarantees a label only touches crop faces where it touches
     true volume faces, so the output is bit-identical to the dense
-    engine and independent of which process runs which label.
+    engine and independent of which process runs which label, which is
+    what lets ``skeletonize_sharded`` partition ``labs``.
     """
     d, h, w = labels.shape
     lib = _bind(build.load())

@@ -81,6 +81,7 @@ def segment_streaming(
     min_segment_size=100,
     aff_threshold_low=0.1,
     aff_threshold_high=0.9999,
+    quantile_pct=85,
     out_path=None,
     tmp_dir=None,
     slab_planes=None,
@@ -88,6 +89,9 @@ def segment_streaming(
     device=None,
 ):
     """Lazy (3, D, H, W) affinity handle -> final-threshold segmentation.
+
+    ``quantile_pct``: the merge score's affinity quantile (score = 1 -
+    quantile of the edge's affinities), 85 as in the reference.
 
     ``out_path``: when set, the labeling streams into a Zarr store there
     (uint32, Z-slab chunks) and the opened lazy handle is returned;
@@ -195,7 +199,8 @@ def segment_streaming(
                 frag_sp.read_slab(i, (nz, h, w), np.uint32), q_slab
             )
         stamp("pass 2 (RAG build) done")
-        seg.merge(th, quantile_pct=85, min_segment_size=min_segment_size)
+        seg.merge(th, quantile_pct=quantile_pct,
+                  min_segment_size=min_segment_size)
         stamp(f"merge done: n_segments={seg.n_segments}")
         if qaff_sp is not None:
             qaff_sp.close()

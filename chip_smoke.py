@@ -86,7 +86,23 @@ Phases (any failure raises, and the script exits non-zero):
     ``--device``) on the same volumes as blosc zarr stores, batch 16,
     96^3, 1 epoch: its JSON line names its run directory, whose best-F1
     ``.pth`` loads into ``load_model``;
-14. one ``{"kernels": [...]}`` line, the card line, and as the last line
+14. the multi-rank path (``parallel``, ``postprocess.distributed``):
+    (a) a process group of one rank over NCCL: the mesh-wide order
+    statistics of phase 4's clipped volume equal ``np.percentile`` bit for
+    bit, ``predict_sharded`` on its (1,) mesh equals phase 4's ``predict``
+    within max-abs 1e-6 with K1's launches counted around it, and its
+    ``predigest=True`` bytes equal the digest of its floats; (b) two gloo
+    ranks on the one card (NCCL refuses two ranks on one device), this
+    script run as ``--sharded-rank``: ``predict_sharded`` of phase 9's
+    zarr store into a shared store, within 1e-6 of (a), each rank's K1
+    launches counted and K1 held to its plain loop at the rank's slab
+    shape; ``segment_streaming_sharded`` of phase 9's digest stores and
+    ``skeletonize_sharded`` of phase 11's tube store give phase 9's labels
+    and phase 11's zip entries; (c) at the same time, ``python -m
+    aind_exaspim_neuron_segmentation_tpu_torch run --distributed`` in two
+    processes on phase 12's crop: one JSON line, phase 12's labels and
+    zip entries;
+15. one ``{"kernels": [...]}`` line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1172,12 +1188,290 @@ def phase_train_full(train, data_handling, inference, io, scatter, card,
     return k1_train, trainer, train_ds
 
 
+def free_port():
+    """A free localhost TCP port."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rank_env(rank, world, port, contract):
+    """Environment of rank ``rank`` of a local job: the JAX package's
+    names (``"jax"``) or torchrun's; gloo, since the ranks share one card
+    (NCCL refuses two ranks on one device)."""
+    env = dict(os.environ, EXA_DIST_BACKEND="gloo")
+    if contract == "jax":
+        env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                   JAX_NUM_PROCESSES=str(world), JAX_PROCESS_ID=str(rank))
+    else:
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(world), RANK=str(rank),
+                   LOCAL_RANK=str(rank))
+    return env
+
+
+def rank_k1_case(rng, slab):
+    """The first batch of a rank's slab of the main path: a Z row of 4x4
+    patches of 96^3 (trim 8) into the (3,) + ``slab`` accumulator."""
+    grid = range(0, 256 - 96 + 64, 64)
+    starts = np.array([(0, y, x) for y in grid for x in grid], np.int32)
+    return (
+        rng.standard_normal((3,) + tuple(slab)).astype(np.float32),
+        rng.random((16, 3, 80, 80, 80), dtype=np.float32),
+        starts, 8,
+    )
+
+
+def sharded_rank(tmp):
+    """One rank of phase 14 (b), run as ``chip_smoke.py --sharded-rank
+    TMP`` with the job in its environment: ``predict_sharded`` of the
+    main volume's zarr store into a shared store (K1's launches counted
+    around it, then K1 held to its plain loop at this rank's slab shape),
+    ``segment_streaming_sharded`` of phase 9's digest stores and
+    ``skeletonize_sharded`` of phase 11's tube store; its figures go to
+    ``TMP/sharded_rank<r>.json``."""
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import (
+        inference,
+        io,
+        parallel,
+        postprocess,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.ops import scatter
+    from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
+        StageTimer,
+    )
+
+    check(parallel.initialize_distributed(), "no two-rank job")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    out = dict(rank=rank, backend=dist.get_backend())
+    runner = inference.load_model(os.path.join(tmp, "unet3d_seeded.pth"),
+                                  device=dev)
+    timer = StageTimer()
+    scatter.scatter_batch.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    parallel.predict_sharded(
+        io.read(os.path.join(tmp, "vol.zarr")), runner,
+        mesh=parallel.make_mesh(), timer=timer,
+        out_path=os.path.join(tmp, "sharded_aff.zarr"))
+    torch.cuda.synchronize()
+    out["predict_s"] = time.perf_counter() - t0
+    out["k1_launches"] = scatter.scatter_batch.launches
+    out["stages_s"] = timer.as_dict()
+    err, vec, _ = k1_check(scatter, dev, f"rank {rank} slab",
+                           rank_k1_case(np.random.default_rng(rank),
+                                        (160, 288, 288)))
+    out["k1_max_abs_err"], out["k1_vec"] = err, vec
+
+    t0 = time.perf_counter()
+    seg_stats = {}
+    postprocess.segment_streaming_sharded(
+        (io.read(os.path.join(tmp, "plan.zarr")),
+         io.read(os.path.join(tmp, "qaff.zarr"))),
+        out_path=os.path.join(tmp, "sharded_seg.zarr"), tmp_dir=tmp,
+        stats_out=seg_stats)
+    out["segment_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sk_stats = {}
+    postprocess.skeletonize_sharded(
+        io.read(os.path.join(tmp, "tubes.zarr")),
+        zip_path=os.path.join(tmp, "sharded_tubes.zip"),
+        stats_out=sk_stats)
+    out["skeletonize_s"] = time.perf_counter() - t0
+    out["segment_protocol"] = seg_stats.get("ranks")
+    out["swc_protocol"] = sk_stats.get("ranks")
+    with open(os.path.join(tmp, f"sharded_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def spawn(argv, world, contract, tmp, name):
+    """Start ``world`` local processes of ``argv`` (stdout and stderr to
+    ``TMP/<name>.r<rank>.log``); returns them."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(tmp, f"{name}.r{rank}.log"), "w")
+        procs.append(subprocess.Popen(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+            env=rank_env(rank, world, port, contract), stdout=log,
+            stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def join(procs, tmp, name, timeout):
+    """Wait for the processes (all killed past ``timeout`` s); fail unless
+    each exited 0. Returns their logs."""
+    deadline = time.perf_counter() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(deadline - time.perf_counter(),
+                                            1)))
+        except subprocess.TimeoutExpired:
+            codes.append("timeout")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    logs = []
+    for rank in range(len(procs)):
+        with open(os.path.join(tmp, f"{name}.r{rank}.log")) as f:
+            logs.append(f.read())
+    check(all(c == 0 for c in codes),
+          f"{name} ranks exited {codes}:\n" + "\n".join(
+              f"--- rank {r}:\n{log[-4000:]}" for r, log in enumerate(logs)))
+    return logs
+
+
+@tf32_off()
+def phase_sharded(inference, io, scatter, runner, vol, aff, seg_main,
+                  tubes_zip, ckpt, card, dev, tmp):
+    """Phase 14, the multi-rank path: (a) ``predict_sharded`` at world size
+    1 over NCCL against phase 4's ``predict``; (b) two gloo ranks on the
+    card: ``predict_sharded`` into a shared store against (a),
+    ``segment_streaming_sharded`` and ``skeletonize_sharded`` against
+    phases 9 and 11; (c) the CLI ``run --distributed`` in two processes
+    against phase 12's ``run``, at the same time as (b). Returns K1's
+    launches in (a)."""
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+    from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
+        DEFAULT_PERCENTILES,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
+        predigest_slab,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.parallel import stats
+    from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
+        StageTimer,
+    )
+
+    t_phase = time.perf_counter()
+    # (a) one rank, NCCL
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1)
+        clipped = np.minimum(vol, 1000)
+        ks, q_plan = stats.rank_plan(vol.size, DEFAULT_PERCENTILES)
+        order = stats.order_stats_sharded(
+            torch.from_numpy(clipped.astype(np.float32)).to(dev), ks, mesh)
+        got_pct = stats.lerp_plan(order.cpu().numpy(), q_plan)
+        want_pct = np.percentile(clipped, DEFAULT_PERCENTILES)
+        check(np.array_equal(got_pct, want_pct),
+              f"mesh order stats {got_pct} != np.percentile {want_pct}")
+        timer = StageTimer()
+        scatter.scatter_batch.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded = parallel.predict_sharded(vol, runner, mesh=mesh,
+                                           timer=timer)
+        torch.cuda.synchronize()
+        t_a = time.perf_counter() - t0
+        launches = scatter.scatter_batch.launches
+        t0 = time.perf_counter()
+        plan, qaff = parallel.predict_sharded(vol, runner, mesh=mesh,
+                                              predigest=True)
+        torch.cuda.synchronize()
+        t_dig = time.perf_counter() - t0
+    finally:
+        dist.destroy_process_group()
+    err_a = float(np.abs(sharded - aff).max())
+    check(launches > 0, "predict_sharded did not launch K1")
+    check(err_a <= 1e-6, f"predict_sharded max abs {err_a} from predict")
+    want_plan, want_q = (t.cpu().numpy() for t in predigest_slab(
+        torch.from_numpy(sharded).to(dev)))
+    check(np.array_equal(plan, want_plan) and np.array_equal(qaff, want_q),
+          "predict_sharded digest differs from the digest of its floats")
+    print(f"sharded (a) world 1, NCCL, 256^3 full width bf16: "
+          f"predict_sharded {t_a:.3f} s (stages "
+          f"{ {k: round(v, 3) for k, v in timer.as_dict().items()} }), "
+          f"max abs {err_a:.3e} from predict; predigest=True {t_dig:.3f} s, "
+          f"bytes == digest of its floats; order stats {got_pct} == "
+          f"np.percentile; K1 launches {launches} [{card}]")
+
+    # (b) and (c): two gloo ranks each, at the same time
+    t0 = time.perf_counter()
+    ranks = spawn([sys.executable, os.path.abspath(__file__),
+                   "--sharded-rank", tmp], 2, "jax", tmp, "sharded")
+    cli_work, cli_zip = (os.path.join(tmp, "cli_dist"),
+                         os.path.join(tmp, "cli_dist.zip"))
+    cli = spawn([sys.executable, "-m",
+                 "aind_exaspim_neuron_segmentation_tpu_torch", "run",
+                 "--distributed", "--input", os.path.join(tmp, "crop.zarr"),
+                 "--model", ckpt, "--workdir", cli_work, "--output",
+                 cli_zip, "--quiet"], 2, "torchrun", tmp, "cli_dist")
+    cli_logs = join(cli, tmp, "cli_dist", 600)
+    t_c = time.perf_counter() - t0
+    join(ranks, tmp, "sharded", 600)
+    t_b = time.perf_counter() - t0
+
+    results = []
+    for rank in (0, 1):
+        with open(os.path.join(tmp, f"sharded_rank{rank}.json")) as f:
+            results.append(json.load(f))
+    store = io.read(os.path.join(tmp, "sharded_aff.zarr"))[:]
+    err_b = float(np.abs(store - sharded).max())
+    check(err_b <= 1e-6, f"two-rank store max abs {err_b} from (a)")
+    check(all(r["k1_launches"] > 0 for r in results),
+          f"a rank launched no K1: {[r['k1_launches'] for r in results]}")
+    seg = io.read(os.path.join(tmp, "sharded_seg.zarr"))[:]
+    check(np.array_equal(seg, seg_main),
+          "two-rank segment_streaming_sharded labels != phase 9's")
+    got_zip = zip_entries(os.path.join(tmp, "sharded_tubes.zip"))
+    check(got_zip == zip_entries(tubes_zip) and len(got_zip) == 32,
+          "two-rank skeletonize_sharded zip != phase 11's")
+    for r in results:
+        print(f"sharded (b) rank {r['rank']} of 2 ({r['backend']}, one "
+              f"card): predict_sharded {r['predict_s']:.3f} s (stages "
+              f"{ {k: round(v, 3) for k, v in r['stages_s'].items()} }), "
+              f"K1 launches {r['k1_launches']}, K1 at the rank's slab vec "
+              f"{r['k1_vec']} == plain loop; segment {r['segment_s']:.3f} s,"
+              f" skeletonize + zip {r['skeletonize_s']:.3f} s [{card}]")
+    print(f"sharded (b) protocol: segment {results[0]['segment_protocol']};"
+          f" swc {results[0]['swc_protocol']}")
+    print(f"sharded (b) two ranks {t_b:.3f} s wall with their start-up: "
+          f"store max abs {err_b:.3e} from (a), labels == phase 9's "
+          f"({int(seg_main.max())} segments), 32 zip entries == phase 11's "
+          f"[{card}]")
+
+    lines = [ln for log in cli_logs for ln in log.splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == 1, f"CLI run --distributed printed {len(lines)} "
+          f"result lines:\n{cli_logs}")
+    result = json.loads(lines[0])
+    check(zip_entries(cli_zip) == zip_entries(os.path.join(tmp, "cli.zip")),
+          "CLI run --distributed zip differs from phase 12's run")
+    check(np.array_equal(
+        io.read(os.path.join(cli_work, "segmentation.zarr"))[:],
+        io.read(os.path.join(tmp, "cli_work", "segmentation.zarr"))[:]),
+        "CLI run --distributed labels differ from phase 12's run")
+    print(f"sharded (c) CLI run --distributed, 2 processes (128^3, full "
+          f"width): {t_c:.3f} s with start-up, stages_s "
+          f"{result['stages_s']}; one JSON line; labels and zip == phase "
+          f"12's run [{card}]")
+    print(f"sharded phase {time.perf_counter() - t_phase:.3f} s [{card}]")
+    return launches
+
+
+
 def main(argv):
     """Run every phase; returns the exit code."""
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--sharded-rank"]:
+        return sharded_rank(argv[1])
     # the port first: outside a checkout this fails before any output
     from aind_exaspim_neuron_segmentation_tpu_torch import (
         cuda_build,
@@ -1236,6 +1530,9 @@ def main(argv):
             train, data_handling, inference, io, scatter, card, dev, tmp)
         if "--profile" in argv:
             profile_train(trainer, data_handling, train_ds)
+        sharded_launches = phase_sharded(
+            inference, io, scatter, runner, vol, aff, seg_main, tubes_zip,
+            ckpt, card, dev, tmp)
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 
@@ -1248,7 +1545,9 @@ def main(argv):
     )]
     print(f"K1 launches: {launches} on the main path (phase 4), "
           f"{lazy_launches} on the lazy main path (phase 9), "
-          f"{train_launches} in training (phase 13: no hand kernel there)")
+          f"{train_launches} in training (phase 13: no hand kernel there), "
+          f"{sharded_launches} on the sharded path at world size 1 (phase "
+          f"14 (a); each rank's own count in (b))")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

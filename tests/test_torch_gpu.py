@@ -316,3 +316,42 @@ def test_augment_on_card_matches_cpu_given_the_draws(cuda):
     want = augment_device.apply_intensity(gi_c, params)
     got = augment_device.apply_intensity(gi_g, dev_params).cpu()
     assert (got - want).abs().max().item() <= 1e-6
+
+
+@pytest.mark.gpu
+def test_predict_sharded_nccl_world_one_equals_predict(cuda, no_tf32):
+    """A process group of one rank over NCCL: ``predict_sharded`` on its
+    (1,) mesh gives ``predict``'s floats (the mesh-wide order statistics
+    ride NCCL's all_reduce) and digests them like the CPU does."""
+    import socket
+
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+    runner = inference.load_model(device=cuda, width_multiplier=0.25,
+                                  dtype=torch.float32)
+    vol = np.random.default_rng(6).uniform(0, 2000, (80, 56, 40)).astype(
+        np.float32)
+    kw = dict(patch_shape=(32,) * 3, overlap=(16, 8, 8), trim=2,
+              batch_size=4)
+    want = inference.predict(vol, runner, verbose=False, **kw)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = parallel.make_mesh(1)
+        assert mesh.group is not None
+        before = scatter.scatter_batch.launches
+        got = parallel.predict_sharded(vol, runner, mesh=mesh, **kw)
+        assert scatter.scatter_batch.launches > before
+        np.testing.assert_array_equal(got, want)
+        plan, qaff = parallel.predict_sharded(vol, runner, mesh=mesh,
+                                              predigest=True, **kw)
+    finally:
+        dist.destroy_process_group()
+    want_plan, want_q = predigest.predigest_slab(torch.from_numpy(got))
+    np.testing.assert_array_equal(plan, want_plan.numpy())
+    np.testing.assert_array_equal(qaff, want_q.numpy())

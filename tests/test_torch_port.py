@@ -399,6 +399,9 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"import {PORT}.machine_learning.train\n"
         f"import {PORT}.machine_learning.data_handling\n"
         f"import {PORT}.ops.augment_device, {PORT}.utils.util\n"
+        f"import {PORT}.parallel, {PORT}.parallel.stats\n"
+        f"import {PORT}.parallel.mesh, {PORT}.parallel.sharded_inference\n"
+        f"import {PORT}.utils.profiling, {PORT}.postprocess.distributed\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"

@@ -1,0 +1,230 @@
+"""Rank program of the port's multi-rank CPU tests (gloo).
+
+Every process of a job runs::
+
+    python -m tests.torch_ranks JOB_DIR
+
+with the job in its environment (``parallel.initialize_distributed``'s
+contracts: ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+``JAX_PROCESS_ID`` or ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` /
+``RANK``). It reads the steps of ``JOB_DIR/job.pkl``, a list of ``(name,
+kind, spec)``, runs them in order, and pickles each step's result on this
+rank to ``JOB_DIR/<name>.r<rank>.pkl``. It imports neither JAX nor the JAX
+package, so a job starts in a few seconds; the test that launched it holds
+the results against the JAX package. A step that raises records the
+error and the job goes on.
+"""
+
+import os
+import pickle
+import subprocess
+import sys
+import time
+import traceback
+
+import contextlib
+
+import numpy as np
+import torch
+
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def one_thread():
+    """Run the block on one CPU thread, as every rank does: the CPU's
+    float32 convolutions sum in an order that depends on the thread
+    count, so a reference made in the test process must match it."""
+    saved = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(saved)
+
+
+def _load_input(spec):
+    from aind_exaspim_neuron_segmentation_tpu_torch import io
+
+    path = spec["input"]
+    if path.endswith(".npy"):
+        return np.load(path)
+    return io.read(path)
+
+
+def _mesh(parallel, shape):
+    if len(shape) == 1:
+        return parallel.make_mesh(shape[0])
+    return parallel.make_mesh_2d(tuple(shape))
+
+
+def run_step(kind, spec, models):
+    """One step's result on this rank (None where it has none)."""
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import (
+        inference,
+        parallel,
+        postprocess,
+    )
+
+    if kind == "init":
+        # a second call on the joined group changes nothing
+        again = parallel.initialize_distributed(device="cpu")
+        return dict(again=again, world=dist.get_world_size(),
+                    rank=dist.get_rank(),
+                    backend=dist.get_backend())
+    if kind == "stats":
+        mesh = _mesh(parallel, spec["mesh"])
+        if mesh.coords is None:
+            return None
+        x = np.load(spec["input"])
+        part = np.array_split(x.ravel(), mesh.size)[
+            int(np.ravel_multi_index(mesh.coords, mesh.shape))]
+        from aind_exaspim_neuron_segmentation_tpu_torch.parallel import stats
+
+        ks = spec["ks"]
+        vals = stats.order_stats_sharded(torch.from_numpy(part), ks, mesh)
+        pct = stats.percentile_sharded(torch.from_numpy(part), spec["qs"],
+                                       x.size, mesh)
+        return dict(order=vals.numpy(), pct=pct.numpy())
+    if kind == "predict":
+        mesh = _mesh(parallel, spec["mesh"])
+        if mesh.coords is None:
+            return None
+        key = (spec["ckpt"], spec.get("affinity_mode", True))
+        if key not in models:
+            models[key] = inference.load_model(
+                key[0], affinity_mode=key[1], device="cpu",
+                width_multiplier=0.25)
+        try:
+            out = parallel.predict_sharded(
+                _load_input(spec), models[key], mesh=mesh, **spec["kw"])
+        except ValueError as exc:
+            return dict(error=str(exc))
+        origin = mesh.coords == (0,) * len(mesh.shape)
+        if isinstance(out, tuple):
+            if isinstance(out[0], np.ndarray):
+                return dict(arrays=out)
+            return dict(arrays=tuple(np.asarray(h[:]) for h in out)
+                        if origin else None)
+        if isinstance(out, np.ndarray):
+            return dict(arrays=(out,))
+        return dict(arrays=(np.asarray(out[:]),) if origin else None)
+    if kind == "segment":
+        pair = spec.get("pair")
+        affs = (tuple(_load_input(dict(input=p)) for p in pair) if pair
+                else _load_input(spec))
+        stats_out = {}
+        out = postprocess.segment_streaming_sharded(
+            affs, stats_out=stats_out, device="cpu", **spec["kw"])
+        if isinstance(out, tuple):
+            return dict(z0=out[0], labels=out[1], stats=stats_out)
+        return dict(labels=np.asarray(out[:]), stats=stats_out)
+    if kind == "skeleton":
+        stats_out = {}
+        local = postprocess.skeletonize_sharded(
+            _load_input(spec), stats_out=stats_out, **spec["kw"])
+        return dict(swc={k: v.to_swc() for k, v in local.items()},
+                    stats=stats_out)
+    raise ValueError(f"unknown step kind {kind!r}")
+
+
+def main(job_dir):
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+    if not parallel.initialize_distributed(device="cpu"):
+        raise SystemExit("no multi-rank job in the environment")
+    rank = dist.get_rank()
+    with open(os.path.join(job_dir, "job.pkl"), "rb") as f:
+        steps = pickle.load(f)
+    models = {}
+    for name, kind, spec in steps:
+        try:
+            result = run_step(kind, spec, models)
+        except Exception:  # recorded for the test to report
+            result = dict(raised=traceback.format_exc())
+        with open(os.path.join(job_dir, f"{name}.r{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+    dist.destroy_process_group()
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def launch(job_dir, steps, world, contract="jax", argv=None):
+    """Start ``world`` rank processes on the steps; returns the processes.
+
+    ``contract``: which environment names carry the job, the JAX
+    package's (``"jax"``) or torchrun's (``"torchrun"``). ``argv``: run
+    this command in every rank instead of the rank program (``steps`` is
+    then None), e.g. the port's CLI with ``--distributed``.
+    """
+    if argv is None:
+        argv = [sys.executable, "-m", "tests.torch_ranks", job_dir]
+        with open(os.path.join(job_dir, "job.pkl"), "wb") as f:
+            pickle.dump(steps, f)
+    port = _free_port()
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, OMP_NUM_THREADS="1")
+        if contract == "jax":
+            env.update(JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                       JAX_NUM_PROCESSES=str(world),
+                       JAX_PROCESS_ID=str(rank))
+        else:
+            env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                       WORLD_SIZE=str(world), RANK=str(rank),
+                       LOCAL_RANK=str(rank))
+        log = open(os.path.join(job_dir, f"log.r{rank}"), "w")
+        procs.append(subprocess.Popen(argv, cwd=REPO, env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+        log.close()
+    return procs
+
+
+def wait(procs, job_dir, timeout):
+    """Wait for every rank (killing all past ``timeout`` seconds); raise
+    with the ranks' logs unless each exited 0."""
+    deadline = time.time() + timeout
+    codes = []
+    for p in procs:
+        try:
+            codes.append(p.wait(timeout=max(deadline - time.time(), 1)))
+        except subprocess.TimeoutExpired:
+            codes.append("timeout")
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+    if any(c != 0 for c in codes):
+        logs = []
+        for rank in range(len(procs)):
+            with open(os.path.join(job_dir, f"log.r{rank}")) as f:
+                logs.append(f"--- rank {rank} ({codes[rank]}):\n"
+                            + f.read()[-3000:])
+        raise RuntimeError("rank job failed:\n" + "\n".join(logs))
+
+
+def result(job_dir, name, rank):
+    """Rank ``rank``'s result of step ``name``; raises what the step
+    raised."""
+    with open(os.path.join(job_dir, f"{name}.r{rank}.pkl"), "rb") as f:
+        out = pickle.load(f)
+    if isinstance(out, dict) and "raised" in out:
+        raise RuntimeError(f"step {name} on rank {rank}:\n{out['raised']}")
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1])
