@@ -21,8 +21,8 @@ float affinities and training run on ``--device`` (before the
 subcommand; default ``cuda``, which raises without a card). Each command
 prints one JSON line as its result.
 
-``--distributed`` (``predict / segment / swc / run``): every process of
-a job runs the same command, the job taken from the environment
+``--distributed`` (every subcommand): every process of a job runs the
+same command, the job taken from the environment
 (``parallel.initialize_distributed``: torchrun's ``MASTER_ADDR`` /
 ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``, or the JAX package's
 ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
@@ -32,11 +32,17 @@ the outputs must lie on a filesystem every process sees::
     torchrun --nproc_per_node 2 \\
         -m aind_exaspim_neuron_segmentation_tpu_torch --device cpu \\
         run --distributed --input vol.zarr --workdir /tmp/w --output o.zip
+
+``train --distributed`` trains data-parallel over the job's ranks
+(``Trainer(mesh=)``; ``--mesh N``: over its first N, the other ranks
+exiting with a note); ranks other than 0 write their checkpoints and
+events under ``<output>/.rank<r>``.
 """
 
 import argparse
 import json
 import os
+import sys
 import time
 
 
@@ -279,15 +285,41 @@ def cmd_train(args):
 
     if len(args.images) != len(args.labels):
         raise SystemExit("--images and --labels must pair up")
+    mesh = None
+    output = args.output
+    if args.distributed or args.mesh:
+        import torch.distributed as dist
+
+        from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+        _init_distributed(args)
+        joined = dist.is_available() and dist.is_initialized()
+        if (args.mesh or 1) > 1 and not joined:
+            raise SystemExit(
+                f"--mesh {args.mesh} needs {args.mesh} processes, one per "
+                "device: run the same command in each with --distributed "
+                "(e.g. torchrun --nproc_per_node N)"
+            )
+        if joined and dist.get_rank():
+            # one writer per artifact: the other ranks keep their
+            # (identical) checkpoints and events out of rank 0's way
+            output = os.path.join(args.output, f".rank{dist.get_rank()}")
+        mesh = parallel.make_mesh(args.mesh)  # None -> every rank
+        if mesh.coords is None:
+            print(f"rank {dist.get_rank()} is not among the first "
+                  f"{args.mesh} ranks of --mesh: nothing to train",
+                  file=sys.stderr)
+            return
     # the Trainer first: without a card it raises before any volume loads
     trainer = Trainer(
-        args.output,
+        output,
         affinity_mode=not args.foreground,
         batch_size=args.batch_size,
         lr=args.lr,
         max_epochs=args.epochs,
         width_multiplier=args.width_multiplier,
         seed=args.seed,
+        mesh=mesh,
         num_workers=args.num_workers,
         device=args.device,
     )
@@ -420,6 +452,15 @@ def build_parser():
     p.add_argument("--num-workers", type=int, default=0, metavar="N",
                    help="fork N sampler processes (0 = one producer "
                         "thread)")
+    p.add_argument("--mesh", type=int, default=None, metavar="N",
+                   help="data-parallel Trainer(mesh=) over the first N "
+                        "ranks of the job (default with --distributed: "
+                        "every rank); one process per device")
+    p.add_argument("--distributed", action="store_true",
+                   help="join the job first (same command on every "
+                        "process; batches shard over the ranks, gradients "
+                        "and BatchNorm statistics are summed across them; "
+                        "rank 0 owns --output)")
     p.set_defaults(fn=cmd_train)
     return top
 

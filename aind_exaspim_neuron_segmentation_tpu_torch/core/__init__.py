@@ -3,12 +3,16 @@
 from aind_exaspim_neuron_segmentation_tpu_torch.core.affinities import (  # noqa: F401
     affinity_channels,
     get_affinity_channels,
+    get_affinity_mask,
+    get_offset_masks,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (  # noqa: F401
     add_padding,
+    blend_weight_map,
     count_patches,
     generate_patch_starts,
     get_patch,
+    get_patch_slices,
     get_slices,
     is_contained,
     patch_grid_ranges,

@@ -6,7 +6,9 @@ the end of the edge's axis so it keeps the label shape.
 :func:`affinity_channels` computes them with torch on the label tensor's
 device (the train step's targets, the tail's known answers);
 :func:`get_affinity_channels` is the numpy host version the training
-datasets use, whose sampler workers never touch torch.
+datasets use, whose sampler workers never touch torch;
+:func:`get_affinity_mask` and :func:`get_offset_masks` are its one-edge
+parts, with the reference's names.
 """
 
 import numpy as np
@@ -44,6 +46,35 @@ def affinity_channels(label_mask, edges=DEFAULT_EDGES, dtype=torch.float32):
         pad[2 * (2 - axis) + 1] = 1
         channels.append(F.pad(aff, pad))
     return torch.stack(channels, dim=lead)
+
+
+def get_offset_masks(label_mask, edge):
+    """The two views of ``label_mask`` :func:`get_affinity_mask` compares:
+    ``o1`` offset by ``+edge``, ``o2`` by ``-edge``."""
+    shape = label_mask.shape
+    edge = np.asarray(edge)
+    off1 = np.maximum(edge, 0)
+    off2 = np.maximum(-edge, 0)
+    o1 = label_mask[tuple(
+        slice(a, s - b) for a, b, s in zip(off1, off2, shape)
+    )]
+    o2 = label_mask[tuple(
+        slice(b, s - a) for a, b, s in zip(off1, off2, shape)
+    )]
+    return o1, o2
+
+
+def get_affinity_mask(label_mask, edge):
+    """Binary affinity mask of one unit edge direction, in the label
+    mask's dtype, zero-padded at the end of the edge's axis."""
+    if sorted(np.abs(edge)) != [0, 0, 1]:
+        raise ValueError(f"expected a unit edge direction, got {edge}")
+    o1, o2 = get_offset_masks(label_mask, edge)
+    aff = ((o1 == o2) & (o1 != 0)).astype(label_mask.dtype)
+    axis = int(np.argmax(np.asarray(edge) != 0))
+    pad = [(0, 0)] * 3
+    pad[axis] = (0, 1)
+    return np.pad(aff, pad, mode="constant", constant_values=0)
 
 
 def get_affinity_channels(label_mask, edges=DEFAULT_EDGES):

@@ -57,6 +57,14 @@ def patch_starts_array(img_shape, patch_shape, overlap):
     return np.asarray(starts, dtype=np.int32).reshape(-1, 3)
 
 
+def get_patch_slices(start, patch_shape, img_shape):
+    """Slices for a start-based patch, clipped to the volume bounds."""
+    return tuple(
+        slice(s, min(s + p, d))
+        for s, p, d in zip(start, patch_shape, img_shape)
+    )
+
+
 def get_slices(center, shape):
     """Slices for a center-based patch (start = center - shape // 2).
 
@@ -91,3 +99,25 @@ def is_contained(voxel, shape, buffer=0):
     above = all(0 <= v + buffer < s for v, s in zip(voxel, shape))
     below = all(0 <= v - buffer < s for v, s in zip(voxel, shape))
     return above and below
+
+
+def blend_weight_map(img_shape, patch_shape, overlap, trim):
+    """Analytic per-voxel hit count of the trimmed overlap-blend stitch.
+
+    Each patch of the grid contributes to ``[start + trim, start + patch
+    - trim)`` clipped to the volume; voxels no core covers (the first
+    ``trim`` of each axis, by default) have weight 0. Separable: the
+    outer product of per-axis counts, O(D + H + W) to build.
+    """
+    axes = []
+    for dim, patch, ov in zip(img_shape, patch_shape, overlap):
+        counts = np.zeros(dim, dtype=np.int32)
+        stride = patch - ov
+        for s in range(0, dim - patch + stride, stride):
+            lo = min(max(s + trim, 0), dim)
+            hi = min(s + patch - trim, dim)
+            counts[lo:hi] += 1
+        axes.append(counts)
+    return (
+        axes[0][:, None, None] * axes[1][None, :, None] * axes[2][None, None, :]
+    )

@@ -22,6 +22,20 @@ does not wait for a step before it prepares the next batch.
 ``accumulate_grads_quirk=True`` reproduces the reference, which never
 calls ``optimizer.zero_grad()``: ``.grad`` is not zeroed, so the
 optimizer sees the running sum of every step's gradients.
+
+``mesh=`` (a ``parallel.RankMesh``) trains data-parallel, one process per
+rank, as the JAX package's ``Trainer(mesh=)`` does in one program: every
+rank samples the identical host batch (same seeds), a ragged last batch
+repeats its last example to fill the ranks (example weight 0), and each
+rank takes its block of rows (``parallel.sharded_first_axis``).
+Augmentation draws the global batch's parameters and applies this rank's
+rows. The BatchNorms synchronize their statistics over the mesh
+(``parallel.sync_batchnorm``), the loss is the global batch's weighted
+mean, each rank's gradients are summed over the mesh with one
+``all_reduce`` after the backward, and the parameters start from the
+mesh's first rank (``parallel.replicated``), so every rank's AdamW takes
+the single-process step. Per-example metrics are gathered in block order
+at the end of an epoch. A mesh of one rank trains as without one.
 """
 
 import math
@@ -50,6 +64,14 @@ from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.augment_device import (
     apply_augment,
     draw_augment_params,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.parallel.mesh import (
+    all_reduce_sum,
+    replicated,
+    sharded_first_axis,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.parallel.sync_batchnorm import (  # noqa: E501
+    convert_sync_batchnorm,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.utils import util
 
@@ -97,7 +119,8 @@ class Trainer:
     """Training loop owner (reference train.py:29 surface).
 
     Parameters mirror the JAX package's Trainer; ``device`` (default
-    ``cuda``, which raises without a card) is where the model trains.
+    ``cuda``, which raises without a card) is where the model trains, on
+    every rank of ``mesh`` (``batch_size`` must divide by its size).
     """
 
     def __init__(
@@ -111,6 +134,7 @@ class Trainer:
         width_multiplier=1,
         accumulate_grads_quirk=False,
         seed=0,
+        mesh=None,
         device_augment=None,
         prefetch=True,
         num_workers=0,
@@ -123,6 +147,19 @@ class Trainer:
                 "num_workers>0 forks background producers, which "
                 "prefetch=False explicitly disables -- pick one"
             )
+        # data parallelism over the mesh's first axis; None when training
+        # alone (a mesh of one rank included)
+        self.mesh = mesh
+        self._rows = None
+        if mesh is not None:
+            if batch_size % mesh.size != 0:
+                raise ValueError(
+                    f"batch_size {batch_size} must divide evenly over "
+                    f"{mesh.size} ranks"
+                )
+            if mesh.size > 1:
+                self._rows = sharded_first_axis(mesh, mesh.axis_names[0])
+                self._rows.rows(batch_size)  # raises off the mesh
         exp_name = "session-" + datetime.today().strftime("%Y%m%d_%H%M")
         self.log_dir = os.path.join(output_dir, exp_name)
         util.mkdir(self.log_dir)
@@ -152,7 +189,13 @@ class Trainer:
         model = UNet3D(output_channels=3 if affinity_mode else 1,
                        width_multiplier=width_multiplier)
         init_weights(model, torch.Generator().manual_seed(seed))
+        if self._rows is not None:
+            convert_sync_batchnorm(model, mesh)
         self.model = model.to(self.device).train()
+        if self._rows is not None:
+            start = replicated(mesh)
+            for t in self.model.state_dict().values():
+                start.place(t)
         self.schedule = cosine_annealing_lr(lr, t_max=25)
         self.optimizer = torch.optim.AdamW(
             self.model.parameters(), lr=lr, weight_decay=0.01
@@ -170,15 +213,41 @@ class Trainer:
             return affinity_channels(y[:, 0])
         return (y > 0).float()
 
+    def _shard(self, xs, ys, n_real):
+        """(xs, ys, example mask) of this rank of a batch of ``n_real``
+        examples: a ragged batch repeats its last example to fill the mesh
+        (mask 0), then each rank keeps its block of rows. Alone, the batch
+        and a mask of ones."""
+        raw = isinstance(xs, tuple)
+        pad = 0 if self._rows is None else -n_real % self._rows.blocks
+        w = np.concatenate([np.ones(n_real, np.float32),
+                            np.zeros(pad, np.float32)])
+        if self._rows is None:
+            return xs, ys, w
+
+        def cut(a):
+            if pad:
+                a = np.concatenate([a, np.repeat(a[-1:], pad, 0)])
+            lo, hi = self._rows.rows(len(a))
+            return a[lo:hi]
+
+        xs = tuple(cut(a) for a in xs) if raw else cut(xs)
+        lo, hi = self._rows.rows(len(w))
+        return xs, cut(ys), w[lo:hi]
+
     def _to_device_batch(self, xs, ys):
-        """Host batch -> (x, y, example mask) on the device.
+        """Host batch -> (x, y, example mask, real examples of the whole
+        batch) on the device.
 
         ``xs`` is float32 patches, or a raw-wire ``(u16 patches, (N, 2)
         float32 [mn, inv])`` pair, reconstructed here as
         ``clip((x - mn) * inv, 0, 1)``. Integer ``ys`` stay integral
-        (int32); float targets travel as float32.
+        (int32); float targets travel as float32. On a mesh, this rank's
+        rows (:meth:`_shard`).
         """
         dev = self.device
+        n_real = (xs[0] if isinstance(xs, tuple) else xs).shape[0]
+        xs, ys, w = self._shard(xs, ys, n_real)
         if isinstance(xs, tuple):
             raw, scale = xs
             x = _int_to_device(raw, dev).float()
@@ -192,20 +261,22 @@ class Trainer:
             y = _int_to_device(ys, dev)
         else:
             y = torch.from_numpy(np.ascontiguousarray(ys, np.float32)).to(dev)
-        return x, y, torch.ones(x.shape[0], device=dev)
+        return x, y, torch.from_numpy(w).to(dev), n_real
 
     def _autocast(self):
         return torch.autocast(self.device.type, dtype=torch.bfloat16,
                               enabled=self.use_amp)
 
     @staticmethod
-    def _loss(logits, y, w):
-        """Mean over examples (weighted by the mask ``w``) of the
-        per-example BCE-with-logits mean."""
+    def _loss(logits, y, w, n_real):
+        """Sum over examples (weighted by the mask ``w``) of the
+        per-example BCE-with-logits mean, over the batch's ``n_real``
+        real examples: the batch's weighted mean, or on a mesh this
+        rank's share of it."""
         per_ex = F.binary_cross_entropy_with_logits(
             logits.float(), y, reduction="none"
         ).mean(dim=tuple(range(1, logits.dim())))
-        return (per_ex * w).sum() / torch.clamp(w.sum(), min=1.0)
+        return (per_ex * w).sum() / max(float(n_real), 1.0)
 
     def _augment_generator(self, epoch, step):
         """The ``torch.Generator`` (on the training device) of one train
@@ -219,32 +290,57 @@ class Trainer:
 
     def train_batch(self, xs, ys, epoch=0, step=0):
         """One optimizer step on a host batch; returns the loss and the
-        per-example precision and recall as device tensors."""
-        x, y, w = self._to_device_batch(xs, ys)
+        per-example precision and recall as device tensors (on a mesh:
+        this rank's share of the loss and its rows' metrics)."""
+        x, y, w, n_real = self._to_device_batch(xs, ys)
         if self.device_augment:
+            n = x.shape[0] * (1 if self._rows is None else self._rows.blocks)
             params = draw_augment_params(self._augment_generator(epoch, step),
-                                         x.shape[0], x.shape[2:])
+                                         n, x.shape[2:])
+            if self._rows is not None:
+                params = {k: self._rows.place(v) for k, v in params.items()}
             x, label = apply_augment(x, y, params)
             y = self._targets_from_labels(label)
         elif not y.is_floating_point():
             y = self._targets_from_labels(y)
-        if not self.accumulate_grads_quirk:
+        running = None
+        if self._rows is not None and self.accumulate_grads_quirk:
+            # the running sum is summed over the mesh already
+            running = [p.grad for p in self.model.parameters()]
+        if self._rows is not None or not self.accumulate_grads_quirk:
             self.optimizer.zero_grad(set_to_none=True)
         with self._autocast():
             logits = self.model(x)
-        loss = self._loss(logits, y, w)
+        loss = self._loss(logits, y, w, n_real)
         loss.backward()
+        if self._rows is not None:
+            self._reduce_grads(running)
         self.optimizer.step()
         precision, recall = batch_precision_recall(
             logits.detach()[:, 0].float(), y[:, 0]
         )
         return loss.detach(), precision, recall
 
+    def _reduce_grads(self, running):
+        """Sum this step's gradients over the mesh (one ``all_reduce``),
+        then add ``running`` (the quirk's running sum, or None)."""
+        params = [p for p in self.model.parameters() if p.grad is not None]
+        flat = torch.cat([p.grad.reshape(-1) for p in params])
+        flat = all_reduce_sum(flat, self.mesh)
+        at = 0
+        for p in params:
+            p.grad.copy_(flat[at:at + p.numel()].view_as(p))
+            at += p.numel()
+        if running is not None:
+            for p, g in zip(self.model.parameters(), running):
+                if g is not None:
+                    p.grad += g
+
     @torch.no_grad()
     def eval_batch(self, xs, ys):
         """Eval-mode loss and per-example precision and recall of a host
         batch, as device tensors."""
-        x, y, w = self._to_device_batch(xs, ys)
+        x, y, w, n_real = self._to_device_batch(xs, ys)
         if not y.is_floating_point():
             y = self._targets_from_labels(y)
         self.model.eval()
@@ -255,7 +351,7 @@ class Trainer:
             self.model.train()
         precision, recall = batch_precision_recall(logits[:, 0].float(),
                                                    y[:, 0])
-        return self._loss(logits, y, w), precision, recall
+        return self._loss(logits, y, w, n_real), precision, recall
 
     # --- loop ---
 
@@ -318,9 +414,26 @@ class Trainer:
                                     num_workers=self.num_workers)
         return iterate_batches(dataset, self.batch_size)
 
-    @staticmethod
-    def _collect(pending, stats):
-        """Fetch an epoch's device-resident metrics into ``stats``."""
+    def _collect(self, pending, stats):
+        """Fetch an epoch's device-resident metrics into ``stats``; on a
+        mesh, every rank's in one ``all_gather`` (loss shares summed,
+        per-example metrics in block order)."""
+        if self._rows is not None and pending:
+            # a ragged last batch has fewer rows a rank; every rank's
+            # steps have the same sizes
+            sizes = [1 + 2 * p.numel() for _, _, p, _ in pending]
+            local = torch.cat([
+                torch.cat([loss.view(1).float(), p.float(), r.float()])
+                for _, loss, p, r in pending])
+            rows = self._rows.gather(local[None])  # (blocks, sum(sizes))
+            gathered, at = [], 0
+            for (n_real, *_), size in zip(pending, sizes):
+                part, b = rows[:, at:at + size], (size - 1) // 2
+                gathered.append((n_real, part[:, 0].sum(),
+                                 part[:, 1:1 + b].reshape(-1),
+                                 part[:, 1 + b:].reshape(-1)))
+                at += size
+            pending = gathered
         for n_real, loss, precision, recall in pending:
             stats["loss"].append(float(loss))
             stats["precision"].extend(precision.cpu()[:n_real].tolist())

@@ -14,6 +14,11 @@ Architecture contract (the same as the JAX package's ``models/unet3d.py``):
   reference's quirk: the D mismatch pads H and the H mismatch pads W;
 * returns raw logits -- callers apply the sigmoid.
 
+``valid_trim=t`` returns only the central ``dim - 2t`` region of every
+spatial axis. In eval mode, where the geometry allows, the last two
+decoder stages compute only what that region needs (the valid-region
+decoder, see :class:`Up`).
+
 ``state_dict`` keys are those of the reference checkpoints
 (``inc.double_conv.0.weight``, ``down1.maxpool_conv.1.double_conv.1.
 running_mean``, ``up1.up.weight``, ``outc.conv.bias``, ...), so a
@@ -26,6 +31,11 @@ reference ``.pth`` loads with a strict ``load_state_dict``. The
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from aind_exaspim_neuron_segmentation_tpu_torch.ops.upsample import (  # noqa: F401,E501
+    trilinear_upsample_x2,
+    x2_support_trim,
+)
 
 DEFAULT_CHANNELS = (32, 64, 128, 256, 512)
 
@@ -56,9 +66,15 @@ class DoubleConv(nn.Module):
             nn.LeakyReLU(0.01, inplace=True),
         )
 
-    def forward(self, x):
-        """Apply both conv blocks."""
-        return self.double_conv(x)
+    def forward(self, x, padding=1):
+        """Apply both conv blocks; ``padding=0`` runs both convs unpadded
+        (each spatial side shrinks by 2) with the same weights."""
+        if padding == 1:
+            return self.double_conv(x)
+        for m in self.double_conv:
+            x = (F.conv3d(x, m.weight, m.bias, padding=padding)
+                 if isinstance(m, nn.Conv3d) else m(x))
+        return x
 
 
 class Down(nn.Module):
@@ -97,11 +113,27 @@ class Up(nn.Module):
 
     ``x1_channels`` and ``skip_channels`` are the channel counts of the
     two inputs.
+
+    ``valid_trim=t`` returns only the central ``dim - 2t`` region of the
+    output on every spatial axis. With ``t >= 2``, trilinear upsampling,
+    eval mode and an exact x2 match of the skip, the block computes only
+    that region: the upsample keeps only the rows the region needs
+    (:func:`trilinear_upsample_x2` with ``out_ranges``), the skip is cut
+    to the same ``dim - 2t + 4`` rows, and both 3^3 convs run unpadded
+    (``dim-2t+4 -> dim-2t+2 -> dim-2t``), each output window seeing the
+    operands of the padded full forward. Otherwise it runs the full
+    forward and slices.
+
+    ``x1_trim=s`` declares that ``x1`` holds only the central ``[s, a -
+    s)`` rows of its nominal ``a``-row grid on every spatial axis: the
+    previous stage decoded only the rows this block's upsample reads.
+    It needs the valid-region path (a ``ValueError`` otherwise).
     """
 
     def __init__(self, x1_channels, skip_channels, out_channels,
                  trilinear=True, fused_bn=False):
         super().__init__()
+        self.trilinear = trilinear
         if trilinear:
             self.up = nn.Upsample(
                 scale_factor=2, mode="trilinear", align_corners=True
@@ -116,10 +148,36 @@ class Up(nn.Module):
             self.conv = DoubleConv(x1_channels // 2 + skip_channels,
                                    out_channels, fused_bn=fused_bn)
 
-    def forward(self, x1, x2):
+    def forward(self, x1, x2, valid_trim=0, x1_trim=0):
         """Decode one level: ``x1`` from below, ``x2`` the skip."""
+        t, s = int(valid_trim), int(x1_trim)
+        fast = (
+            t >= 2
+            and self.trilinear
+            and not self.training
+            and all(2 * (a + 2 * s) == b and b - 2 * t > 0
+                    for a, b in zip(x1.shape[2:], x2.shape[2:]))
+        )
+        if s and not fast:
+            raise ValueError(
+                "x1_trim requires the valid-region fast path "
+                f"(valid_trim={t}, trilinear={self.trilinear}, "
+                f"train={self.training}, shapes {tuple(x1.shape[2:])}/"
+                f"{tuple(x2.shape[2:])})"
+            )
+        if fast:
+            ranges = tuple((t - 2, 2 * (a + 2 * s) - (t - 2))
+                           for a in x1.shape[2:])
+            x1 = trilinear_upsample_x2(x1, out_ranges=ranges, in_trim=s)
+            c = t - 2
+            x2 = x2[:, :, c:x2.shape[2] - c, c:x2.shape[3] - c,
+                    c:x2.shape[4] - c]
+            return self.conv(torch.cat([x2, x1], dim=1), padding=0)
         x1 = pad_to_skip(self.up(x1), x2)
-        return self.conv(torch.cat([x2, x1], dim=1))
+        out = self.conv(torch.cat([x2, x1], dim=1))
+        if t > 0:
+            out = out[:, :, t:-t, t:-t, t:-t]
+        return out
 
 
 class OutConv(nn.Module):
@@ -168,10 +226,12 @@ class UNet3D(nn.Module):
 
         ``valid_trim=t`` returns only the central ``dim - 2t`` region of
         every spatial axis -- what callers keep after the ``t``-voxel
-        border trim. The values equal the sliced full forward exactly:
-        this version runs the full forward and slices before the 1x1
-        output conv. (The JAX package's valid-region decoder, which skips
-        the trimmed border in the last decoder stages, is not ported yet.)
+        border trim. In eval mode up4 decodes only that region when the
+        geometry allows (:class:`Up`), and up3 then decodes only the rows
+        up4's upsample reads (``x1_trim``; the rows it drops have zero
+        weight there, :func:`x2_support_trim`). The values equal the
+        sliced full forward's unless the backend picks another algorithm
+        for the unpadded convs (none did on the CPU or on an H100).
         """
         in_dtype = x.dtype
         x = x.to(self.outc.conv.weight.dtype)
@@ -180,13 +240,20 @@ class UNet3D(nn.Module):
         x3 = self.down2(x2)
         x4 = self.down3(x3)
         x5 = self.down4(x4)
+        t = int(valid_trim)
+        vt3 = 0
+        if t >= 2 and self.trilinear and not self.training:
+            a_dims, b_dims = x2.shape[2:], x1.shape[2:]
+            if all(2 * a == b and b - 2 * t > 0
+                   for a, b in zip(a_dims, b_dims)):
+                s = min(x2_support_trim(a, t - 2, 2 * a - (t - 2))
+                        for a in a_dims)
+                if s >= 2 and all(a - 2 * s > 0 for a in a_dims):
+                    vt3 = s
         y = self.up1(x5, x4)
         y = self.up2(y, x3)
-        y = self.up3(y, x2)
-        y = self.up4(y, x1)
-        t = int(valid_trim)
-        if t > 0:
-            y = y[:, :, t:-t, t:-t, t:-t]
+        y = self.up3(y, x2, valid_trim=vt3)
+        y = self.up4(y, x1, valid_trim=t, x1_trim=vt3)
         return self.outc(y).to(in_dtype)
 
 

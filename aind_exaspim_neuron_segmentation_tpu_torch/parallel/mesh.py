@@ -4,8 +4,11 @@ Every process of a job runs the same program (SPMD) and drives one
 device. :func:`initialize_distributed` joins the job's process group;
 :func:`make_mesh` / :func:`make_mesh_2d` lay the job's ranks out as a
 1-D (Z) or 2-D (Z x Y) grid, a :class:`RankMesh`, which
-``parallel.predict_sharded`` shards its patch grid over. The collectives
-here (an integer histogram ``all_reduce``, forward neighbour strip
+``parallel.predict_sharded`` shards its patch grid over and the
+data-parallel ``Trainer(mesh=)`` its batches. :func:`replicated` and
+:func:`sharded_first_axis` are the Trainer's placements (the JAX
+package's ``NamedSharding(mesh, P())`` and ``P(axis)``). The collectives
+here (``all_reduce``, ``all_gather``, broadcast, forward neighbour strip
 exchange, a barrier) run over NCCL with device tensors, and over gloo
 with tensors staged through the host.
 """
@@ -206,6 +209,85 @@ def all_reduce_sum(t, spec=None):
         return host.to(t.device)
     dist.all_reduce(t, group=group)
     return t
+
+
+def all_gather(t, spec=None):
+    """Every rank's ``t`` (same shape and dtype on each) over the ranks of
+    ``spec``, as a list in group rank order on ``t``'s device; ``[t]``
+    without a process group."""
+    if not _initialized():
+        return [t]
+    group = _group(spec)
+    src = t.cpu() if _staged(t, group) else t.contiguous()
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    return [o.to(t.device) for o in out]
+
+
+class Placement:
+    """Where the Trainer puts a tensor on a :class:`RankMesh`: on every
+    rank (``axis`` None, :func:`replicated`) or split by its leading axis
+    over the mesh axis ``axis`` into contiguous blocks in block order
+    (:func:`sharded_first_axis`), replicated over the other mesh axes."""
+
+    def __init__(self, mesh, axis=None):
+        self.mesh = mesh
+        self.axis = None if axis is None else mesh.axis_names.index(axis)
+
+    @property
+    def blocks(self):
+        """How many blocks the leading axis splits into."""
+        return 1 if self.axis is None else self.mesh.shape[self.axis]
+
+    def rows(self, n):
+        """This rank's ``[lo, hi)`` of ``n`` leading rows."""
+        if n % self.blocks:
+            raise ValueError(
+                f"{n} rows do not divide over {self.blocks} blocks")
+        if self.axis is None:
+            return 0, n
+        if self.mesh.coords is None:
+            raise ValueError(f"rank {self.mesh.rank} is not in {self.mesh}")
+        b, size = self.mesh.coords[self.axis], n // self.blocks
+        return b * size, (b + 1) * size
+
+    @torch.no_grad()
+    def place(self, t):
+        """This rank's part of ``t``: its block of rows, or for a
+        replicated placement ``t`` itself, overwritten in place with the
+        mesh's first rank's ``t``."""
+        if self.axis is not None:
+            lo, hi = self.rows(t.shape[0])
+            return t[lo:hi]
+        group = self.mesh.group
+        if group is not None and self.mesh.size > 1:
+            src = int(self.mesh.devices.flat[0])
+            host = t.cpu() if _staged(t, group) else t
+            dist.broadcast(host, src, group=group)
+            if host is not t:
+                t.copy_(host)
+        return t
+
+    def gather(self, t):
+        """The whole of a sharded tensor from every rank's block ``t``,
+        blocks in order, on ``t``'s device (``t`` when replicated)."""
+        if self.axis is None or self.blocks == 1:
+            return t
+        parts = all_gather(t, self.mesh)
+        order = sorted(int(r) for r in self.mesh.devices.ravel())
+        holders = [int(np.take(self.mesh.devices, b, axis=self.axis).flat[0])
+                   for b in range(self.blocks)]
+        return torch.cat([parts[order.index(r)] for r in holders])
+
+
+def replicated(mesh):
+    """The same tensor on every rank of ``mesh`` (its first rank's)."""
+    return Placement(mesh)
+
+
+def sharded_first_axis(mesh, axis_name="shard"):
+    """The leading axis split over the mesh axis ``axis_name``."""
+    return Placement(mesh, axis_name)
 
 
 def shift_forward(t, mesh, axis):

@@ -102,7 +102,39 @@ Phases (any failure raises, and the script exits non-zero):
     aind_exaspim_neuron_segmentation_tpu_torch run --distributed`` in two
     processes on phase 12's crop: one JSON line, phase 12's labels and
     zip entries;
-15. one ``{"kernels": [...]}`` line, the card line, and as the last line
+15. the valid-region decoder and data-parallel training: (a) 16 patches
+    of 96^3 of phase 4's volume through ``forward_batch`` with
+    ``valid_trim=8`` (up3's cascade, up4's unpadded convs) against the
+    sliced full forward of the same module, float32 (TF32 off, MAE <=
+    1e-5) and bf16 folded (printed), each path timed with CUDA events
+    (median of 5); (b) ``Trainer(mesh=make_mesh())`` on a process group
+    of one rank over NCCL, full width, batch 16, 96^3, bf16, augmentation
+    on the card, phase 13's volumes, two steps: a mesh of one rank keeps
+    the native BatchNorm and adds no collective (checked), so its step is
+    the one without a mesh; then (c)'s references in one process: the
+    first step (logits, loss, gradients) of the Trainer without a mesh
+    whose BatchNorms are ``convert_sync_batchnorm(model, None)`` (the
+    ranks' BatchNorm, over the whole batch), run twice, and with cuDNN's
+    BatchNorm, same volumes, seed and size, and one float32 step (TF32
+    off) without a mesh at phase 13 (a)'s size (width 0.25, a host batch
+    of 4 x 32^3) with the float64 gradients of its weights on the CPU;
+    (c) two gloo ranks on the one card, this script run as
+    ``--dp-rank``: ``Trainer(mesh=make_mesh(2))`` takes the same float32
+    step (2 patches a rank), its gradients within 1e-3 of each tensor's
+    max of (b)'s, and from float64 within 1e-3 or twice (b)'s own
+    distance; then ``run`` for 2 epochs of 2 steps at full width, global
+    batch 16, bf16, augmentation on the card: its first step against the
+    synchronized-BatchNorm process's, the logits' MAE, the loss, the
+    gradients' relative L2 and its median over the tensors each within
+    twice what swapping cuDNN's BatchNorm for the synchronized one moves
+    them in one process (a bf16 forward that rounds differently moves
+    the logits by bf16 ulps and the gradients by routing flips), each
+    rank's step times, patches/s, input wait and peak memory printed;
+    both ranks' parameters and BatchNorm buffers equal after it; (d)
+    ``python -m aind_exaspim_neuron_segmentation_tpu_torch train
+    --distributed`` in two processes on phase 13's stores, patch 96,
+    batch 4, 1 epoch: one JSON line, rank 1's run under ``.rank1``;
+16. one ``{"kernels": [...]}`` line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1188,6 +1220,457 @@ def phase_train_full(train, data_handling, inference, io, scatter, card,
     return k1_train, trainer, train_ds
 
 
+def record_first_step(trainer):
+    """Keep the gradients the optimizer's first step of ``trainer`` takes
+    (on a mesh: summed over it), by parameter name, in
+    ``trainer.first_grads``, as host arrays, and the logits of the
+    model's first forward (this rank's rows) in ``trainer.first_logits``,
+    on the card."""
+    step = trainer.optimizer.step
+    forward = trainer.model.forward
+    trainer.first_grads = trainer.first_logits = None
+
+    def first_forward(*args, **kwargs):
+        out = forward(*args, **kwargs)
+        if trainer.first_logits is None:
+            trainer.first_logits = out.detach().clone()
+        return out
+
+    trainer.model.forward = first_forward
+
+    def first(*args, **kwargs):
+        if trainer.first_grads is None:
+            trainer.first_grads = {
+                n: p.grad.float().cpu().numpy()
+                for n, p in trainer.model.named_parameters()}
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = first
+
+
+def gradient_figures(got, want):
+    """(worst tensor's max-abs difference over its max-abs gradient, its
+    name, the pre-BatchNorm conv biases' largest gradient over the
+    largest gradient) of ``got`` against ``want``."""
+    top = max(np.abs(g).max() for g in want.values())
+    worst, name, noise = 0.0, None, 0.0
+    for key, w in want.items():
+        if pre_bn_bias(key):
+            noise = max(noise, np.abs(got[key]).max() / top,
+                        np.abs(w).max() / top)
+            continue
+        rel = float(np.abs(got[key] - w).max() / np.abs(w).max())
+        if rel >= worst:
+            worst, name = rel, key
+    return worst, name, float(noise)
+
+
+def param_figure(got, want):
+    """Largest per-tensor max-abs difference of two parameter sets over
+    that tensor's max-abs value, and the largest absolute difference."""
+    rel = absolute = 0.0
+    for key, w in want.items():
+        d = float(np.abs(got[key] - w).max())
+        rel = max(rel, d / float(np.abs(w).max()))
+        absolute = max(absolute, d)
+    return rel, absolute
+
+
+def forward_batch_ms(forward_batch, module, slab, starts, valid, reps=5):
+    """Median device ms of ``forward_batch`` over ``reps`` timed calls
+    after two warm-up calls (CUDA events around each)."""
+    kw = dict(patch_shape=(96, 96, 96), trim=8)
+    times = []
+    with torch.inference_mode():
+        for i in range(reps + 2):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            forward_batch(module, slab, starts, valid, **kw)
+            end.record()
+            end.synchronize()
+            if i >= 2:
+                times.append(start.elapsed_time(end))
+    return float(np.median(times)), times
+
+
+def sliced_forward(module):
+    """``module`` called as the full forward sliced to the kept core: the
+    path the valid-region decoder replaces."""
+    def call(x, valid_trim=0):
+        t = valid_trim
+        return module(x)[:, :, t:-t, t:-t, t:-t]
+
+    return call
+
+
+def phase_valid_decoder(inference, runner, vol, ckpt, card, dev):
+    """(a) The valid-region decoder at full width on 16 patches of the
+    main volume, against the sliced full forward of the same module."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.core import (
+        normalize,
+        patch_starts_array,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.ops.stitch import (
+        forward_batch,
+    )
+
+    slab = torch.from_numpy(
+        normalize(np.minimum(vol, 1000)).astype(np.float32)).to(dev)
+    # the first 16 patches of the grid that lie inside the volume
+    # (``predict`` reflect-pads the volume for the others)
+    grid = [p for p in patch_starts_array(vol.shape, (96,) * 3, (32,) * 3)
+            if (p + 96 <= np.asarray(vol.shape)).all()]
+    starts = torch.from_numpy(np.stack(grid[:16])).to(dev)
+    valid = torch.ones(16, device=dev)
+    ref = inference.load_model(ckpt, affinity_mode=True, device=dev,
+                               dtype=torch.float32)
+    kw = dict(patch_shape=(96, 96, 96), trim=8)
+    figures = {}
+    with torch.inference_mode(), tf32_off():
+        for name, module in (("float32", ref.module),
+                             ("bf16 folded", runner.module)):
+            fast = forward_batch(module, slab, starts, valid, **kw)
+            full = forward_batch(sliced_forward(module), slab, starts,
+                                 valid, **kw)
+            check(fast.shape == full.shape == (16, 3, 80, 80, 80),
+                  f"valid-region batch {tuple(fast.shape)}")
+            diff = (fast - full).abs()
+            figures[name] = (float(diff.max()), float(diff.mean()))
+            del fast, full, diff
+    del ref
+    torch.cuda.empty_cache()
+    for name, (max_abs, mae) in figures.items():
+        print(f"valid (a) forward_batch valid_trim=8 vs sliced full forward, "
+              f"16 x 96^3, {name}: max abs {max_abs:.3e}, MAE {mae:.3e} "
+              f"[{card}]")
+    check(figures["float32"][1] <= 1e-5,
+          f"valid-region float32 MAE {figures['float32'][1]} > 1e-5")
+    ms_fast, runs_fast = forward_batch_ms(forward_batch, runner.module,
+                                          slab, starts, valid)
+    ms_full, runs_full = forward_batch_ms(
+        forward_batch, sliced_forward(runner.module), slab, starts, valid)
+    print(f"valid (a) forward_batch device time, bf16 folded, 16 x 96^3 "
+          f"(median of 5): valid-region {ms_fast:.2f} ms (runs "
+          f"{[round(t, 2) for t in runs_fast]}), sliced full forward "
+          f"{ms_full:.2f} ms (runs {[round(t, 2) for t in runs_full]}) "
+          f"[{card}]")
+    return figures
+
+
+def dp_trainers(train, data_handling, imgs, labs, mesh, dev, tmp, name,
+                **kw):
+    """A full-width bf16 Trainer (batch 16) on ``mesh`` and its datasets on
+    phase 13's volumes (augmentation on the card)."""
+    trainer = train.Trainer(os.path.join(tmp, name), batch_size=16,
+                            use_amp=True, mesh=mesh, device=dev, **kw)
+    train_ds = data_handling.TrainDataset(
+        imgs, labs, patch_shape=(96, 96, 96), seed=0,
+        return_label_patches=True)
+    val_ds = data_handling.ValidateDataset(
+        imgs, labs, patch_shape=(96, 96, 96), containment_buffer=0)
+    return trainer, train_ds, val_ds
+
+
+@tf32_off()
+def float32_dp_step(train, mesh, dev, tmp, name, exact=False):
+    """One float32 train step (TF32 off) at phase 13 (a)'s size (width
+    0.25, 32^3) on a host batch of 4 every rank sees; returns its
+    first-step gradients and, with ``exact``, the float64 gradients of
+    the same weights on the CPU."""
+    trainer = train.Trainer(os.path.join(tmp, name), batch_size=4,
+                            width_multiplier=0.25, use_amp=False,
+                            prefetch=False, mesh=mesh, device=dev)
+    x, y = train_batch_host(4, 32, seed=7)
+    # the float64 copy first: a copy made after record_first_step would
+    # carry its wrapped forward
+    exact = float64_gradients(trainer.model, x, y)[1] if exact else None
+    record_first_step(trainer)
+    trainer.train_batch(x, y)
+    return trainer.first_grads, exact
+
+
+def one_process_reference(train, data_handling, imgs, labs, dev, tmp, name,
+                          sync):
+    """The first step of one process without a mesh, full width, bf16,
+    batch 16, phase 13's volumes and seed: its gradients, its first
+    forward's logits and its loss. ``sync``: its BatchNorms are the
+    synchronized ones over the whole batch (the function (c)'s ranks
+    compute); else cuDNN's."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.parallel.sync_batchnorm import (  # noqa: E501
+        convert_sync_batchnorm,
+    )
+
+    trainer, train_ds, _ = dp_trainers(train, data_handling, imgs, labs,
+                                       None, dev, tmp, name, max_epochs=1)
+    if sync:
+        convert_sync_batchnorm(trainer.model, None)
+    rec = timed_train_batches(trainer)
+    record_first_step(trainer)
+    trainer.train_step(train_ds, 0)
+    loss = float(rec[0][3])
+    check(np.isfinite(loss), f"{name}: loss {loss}")
+    out = dict(grads=trainer.first_grads, logits=trainer.first_logits,
+               loss=loss)
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def dp_figures(got, want):
+    """How far one first step lies from another: the logits' mean
+    absolute difference, the loss's relative difference, the gradients'
+    relative L2 difference over all tensors and its median over the
+    tensors (pre-BatchNorm conv biases left out), and the worst tensor's
+    max-abs difference over its max-abs gradient."""
+    g, w = got["grads"], want["grads"]
+    keys = [k for k in w if not pre_bn_bias(k)]
+    l2 = [float(np.linalg.norm(g[k] - w[k]) / np.linalg.norm(w[k]))
+          for k in keys]
+    flat = [np.concatenate([d[k].ravel() for k in keys]) for d in (g, w)]
+    return dict(
+        logits_mae=float((got["logits"].float()
+                          - want["logits"].float()).abs().mean()),
+        loss_rel=abs(got["loss"] - want["loss"]) / abs(want["loss"]),
+        grad_l2=float(np.linalg.norm(flat[0] - flat[1])
+                      / np.linalg.norm(flat[1])),
+        grad_l2_median=float(np.median(l2)),
+        grad_max_abs=gradient_figures(g, w)[0])
+
+
+def format_figures(fig):
+    return ", ".join(f"{k} {v:.3e}" for k, v in fig.items())
+
+
+def phase_dp_world1(train, data_handling, imgs, labs, card, dev, tmp):
+    """(b) ``Trainer(mesh=make_mesh())`` on one NCCL rank (two bf16
+    steps), then (c)'s references: the first step of one process with
+    the synchronized BatchNorm, run twice, and with cuDNN's; the float32
+    reference step with its float64 gradients. Returns the references."""
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+    from aind_exaspim_neuron_segmentation_tpu_torch.parallel.sync_batchnorm import (  # noqa: E501
+        SyncBatchNorm3d,
+    )
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        trainer, train_ds, _ = dp_trainers(
+            train, data_handling, imgs, labs, parallel.make_mesh(), dev, tmp,
+            "dp_world1", max_epochs=1)
+        check(trainer._rows is None and not any(
+            isinstance(m, SyncBatchNorm3d) for m in trainer.model.modules()),
+            "a mesh of one rank changed the Trainer's step")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_step(train_ds, 0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(np.isfinite(stats["loss"]), f"world-1 mesh loss {stats}")
+        del trainer
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    print(f"dp (b) Trainer(mesh=make_mesh()), 1 NCCL rank: native "
+          f"BatchNorm, no collective (the step without a mesh); full width, "
+          f"batch 16, 96^3, bf16, augmentation on the card, 2 steps "
+          f"{wall:.3f} s, mean loss {stats['loss']:.6f} [{card}]")
+    refs = {name: one_process_reference(train, data_handling, imgs, labs,
+                                        dev, tmp, f"dp_{name}", sync)
+            for name, sync in (("sync", True), ("sync_again", True),
+                               ("cudnn", False))}
+    again = dp_figures(refs["sync_again"], refs["sync"])
+    swap = dp_figures(refs["cudnn"], refs["sync"])
+    print(f"dp (b) one process without a mesh, full width, batch 16, bf16, "
+          f"first step; a second run with the synchronized BatchNorm vs the "
+          f"first: {format_figures(again)}; cuDNN's BatchNorm vs the "
+          f"synchronized: {format_figures(swap)} [{card}]")
+    ref, exact = float32_dp_step(train, None, dev, tmp, "dp_f32_alone",
+                                 exact=True)
+    worst, name, _ = gradient_figures(ref, exact)
+    print(f"dp (b) float32 reference step (no mesh, TF32 off, width 0.25, "
+          f"4 x 32^3 host batch): worst {worst:.3e} of the tensor's max "
+          f"from float64 ({name}) [{card}]")
+    return dict(f32=ref, f64=exact, f32_from_f64=worst, bf16=refs["sync"],
+                bf16_swap=swap)
+
+
+def dp_rank(tmp):
+    """One rank of phase 15 (c), run as ``chip_smoke.py --dp-rank TMP``
+    with the job in its environment: the float32 step on the mesh of both
+    ranks, then ``Trainer.run`` for 2 epochs of 2 steps at full width;
+    its figures go to ``TMP/dp_rank<r>.json``, both runs' first-step
+    gradients and the final state to ``TMP/dp_rank<r>.pt``."""
+    import torch.distributed as dist
+
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        data_handling,
+        train,
+    )
+
+    check(parallel.initialize_distributed(), "no two-rank job")
+    rank = dist.get_rank()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = parallel.make_mesh(2)
+    data = np.load(os.path.join(tmp, "train_vols.npz"))
+    imgs = [data[f"img{k}"] for k in range(len(data.files) // 2)]
+    labs = [data[f"lab{k}"] for k in range(len(data.files) // 2)]
+    grads, _ = float32_dp_step(train, mesh, dev, tmp, f"dp_f32_r{rank}")
+    out = dict(rank=rank, backend=dist.get_backend())
+
+    trainer, train_ds, val_ds = dp_trainers(
+        train, data_handling, imgs, labs, mesh, dev, tmp, f"dp_r{rank}",
+        max_epochs=2)
+    rec = timed_train_batches(trainer)
+    record_first_step(trainer)
+    epochs = []
+    inner_epoch = trainer.train_step
+
+    def train_step(dataset, epoch):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        stats = inner_epoch(dataset, epoch)
+        torch.cuda.synchronize()
+        epochs.append((time.perf_counter() - t, trainer.input_wait_s))
+        return stats
+
+    trainer.train_step = train_step
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out["best_f1"] = trainer.run(train_ds, val_ds)
+    torch.cuda.synchronize()
+    out["run_s"] = time.perf_counter() - t0
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["step_ms"] = [r[0].elapsed_time(r[1]) for r in rec]
+    out["losses"] = [float(r[3]) for r in rec]
+    out["epochs"] = epochs
+    out["patches"] = len(train_ds)
+    state = {k: v.cpu() for k, v in trainer.model.state_dict().items()}
+    torch.save({
+        "f32": {k: torch.from_numpy(g) for k, g in grads.items()},
+        "bf16": {k: torch.from_numpy(g)
+                 for k, g in trainer.first_grads.items()},
+        "logits": trainer.first_logits.cpu(),
+        "state": state}, os.path.join(tmp, f"dp_rank{rank}.pt"))
+    with open(os.path.join(tmp, f"dp_rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_data_parallel(train, data_handling, train_ds, card, dev, tmp):
+    """Phase 15 (b)-(d): data-parallel training on one NCCL rank, on two
+    gloo ranks of this script, and through the CLI's ``train
+    --distributed``."""
+    t_phase = time.perf_counter()
+    imgs, labs = train_ds.input_imgs, train_ds.label_masks
+    ref = phase_dp_world1(train, data_handling, imgs, labs, card, dev, tmp)
+
+    # (c) two gloo ranks on the one card
+    np.savez(os.path.join(tmp, "train_vols.npz"),
+             **{f"img{k}": a for k, a in enumerate(imgs)},
+             **{f"lab{k}": a for k, a in enumerate(labs)})
+    t0 = time.perf_counter()
+    join(spawn([sys.executable, os.path.abspath(__file__), "--dp-rank",
+                tmp], 2, "jax", tmp, "dp"), tmp, "dp", 900)
+    t_c = time.perf_counter() - t0
+    results, saved = [], []
+    for rank in (0, 1):
+        with open(os.path.join(tmp, f"dp_rank{rank}.json")) as f:
+            results.append(json.load(f))
+        saved.append(torch.load(os.path.join(tmp, f"dp_rank{rank}.pt")))
+    for key, value in saved[0]["state"].items():
+        check(torch.equal(saved[1]["state"][key], value),
+              f"ranks differ in {key} after the data-parallel run")
+    got = {k: g.numpy() for k, g in saved[0]["f32"].items()}
+    worst, name, noise = gradient_figures(got, ref["f32"])
+    worst64, name64, _ = gradient_figures(got, ref["f64"])
+    print(f"dp (c) 2 gloo ranks, float32 step (TF32 off, width 0.25, 2 of "
+          f"4 x 32^3 a rank): gradients worst {worst:.3e} of the tensor's "
+          f"max from one process ({name}), {worst64:.3e} from float64 "
+          f"({name64}), pre-BatchNorm biases <= {noise:.3e} [{card}]")
+    check(worst <= 1e-3, f"two-rank gradient {worst} > 1e-3 of max")
+    # no farther from float64 than the train bar, or than twice what one
+    # float32 process lies from it
+    bar64 = max(1e-3, 2 * ref["f32_from_f64"])
+    check(worst64 <= bar64, f"two-rank gradient {worst64} > {bar64} of max "
+          "from float64")
+    check(noise <= 1e-5, f"pre-BatchNorm bias gradient {noise} > 1e-5")
+    # the ranks' first step as one: the gradients are summed already, the
+    # logits are the ranks' blocks of rows, the loss their shares' sum
+    ranks = dict(grads={k: g.numpy() for k, g in saved[0]["bf16"].items()},
+                 logits=torch.cat([s["logits"] for s in saved]),
+                 loss=sum(r["losses"][0] for r in results))
+    fig = dp_figures(ranks, {k: v.cpu() if k == "logits" else v
+                             for k, v in ref["bf16"].items()})
+    print(f"dp (c) full width, bf16, the run's first step vs (b)'s one "
+          f"process with the synchronized BatchNorm on the same global "
+          f"batch: {format_figures(fig)} (one process, cuDNN's BatchNorm "
+          f"vs the synchronized: {format_figures(ref['bf16_swap'])}) "
+          f"[{card}]")
+    # Any change to the rounding of a bf16 forward moves the logits by
+    # bf16 ulps and flips max-pool and LeakyReLU routes, so no 1e-3 bar
+    # holds between two forwards that round differently: the batch
+    # split must move the step no more than twice what swapping the
+    # BatchNorm's implementation in one process moves it
+    for key in ("logits_mae", "loss_rel", "grad_l2", "grad_l2_median"):
+        bar = 2 * ref["bf16_swap"][key]
+        check(fig[key] <= bar, f"two-rank bf16 {key} {fig[key]} > {bar} "
+              "(twice one process's BatchNorm swap)")
+    for r in results:
+        ms = r["step_ms"]
+        print(f"dp (c) rank {r['rank']} of 2 ({r['backend']}, one card), "
+              f"full width, global batch 16, 96^3, bf16, augmentation on "
+              f"the card: run {r['run_s']:.3f} s for 2 epochs + validation; "
+              f"step on the device first {ms[0]:.1f} ms, warm median "
+              f"{np.median(ms[1:]):.1f} ms (all {[round(v, 1) for v in ms]}); "
+              f"peak {r['peak_gib']:.2f} GiB [{card}]")
+        for e, (wall, wait) in enumerate(r["epochs"]):
+            print(f"dp (c) rank {r['rank']} epoch {e}: {wall:.3f} s for "
+                  f"{r['patches']} patches ({r['patches'] / wall:.2f} "
+                  f"patches/s of the global batch), input_wait_s {wait:.3f} "
+                  f"[{card}]")
+    check(all(np.isfinite(r["losses"]).all() and len(r["losses"]) == 4
+              for r in results), "two-rank losses")
+    print(f"dp (c) two ranks {t_c:.3f} s with start-up; parameters and "
+          f"BatchNorm buffers equal on both ranks ({len(saved[0]['state'])} "
+          f"tensors) [{card}]")
+
+    # (d) the CLI, two processes
+    out = os.path.join(tmp, "cli_dp")
+    stores = {kind: [os.path.join(tmp, f"train_{kind}_{k}.zarr")
+                     for k in range(len(imgs))]
+              for kind in ("images", "labels")}
+    t0 = time.perf_counter()
+    logs = join(spawn(
+        [sys.executable, "-m", "aind_exaspim_neuron_segmentation_tpu_torch",
+         "train", "--distributed", "--images", *stores["images"],
+         "--labels", *stores["labels"], "--output", out, "--patch",
+         "96,96,96", "--batch-size", "4", "--epochs", "1",
+         "--containment-buffer", "0"], 2, "torchrun", tmp, "cli_dp"),
+        tmp, "cli_dp", 600)
+    t_d = time.perf_counter() - t0
+    lines = [ln for log in logs for ln in log.splitlines()
+             if ln.startswith("{")]
+    check(len(lines) == 1 and lines[0] in logs[0],
+          f"CLI train --distributed printed {len(lines)} result lines")
+    run0 = json.loads(lines[0])["train"]
+    rank1 = os.path.join(out, ".rank1")
+    check(os.path.dirname(run0) == out and os.path.isdir(rank1)
+          and os.listdir(rank1), f"CLI train --distributed: {run0}, "
+          f"{rank1}")
+    print(f"dp (d) CLI train --distributed, 2 processes (patch 96, batch 4, "
+          f"1 epoch, full width): {t_d:.3f} s with start-up; one JSON line "
+          f"({os.path.basename(run0)}), rank 1's run under .rank1 "
+          f"({os.listdir(rank1)}) [{card}]")
+    print(f"data-parallel phase {time.perf_counter() - t_phase:.3f} s "
+          f"[{card}]")
+
+
+
 def free_port():
     """A free localhost TCP port."""
     import socket
@@ -1472,6 +1955,8 @@ def main(argv):
         return 1
     if argv[:1] == ["--sharded-rank"]:
         return sharded_rank(argv[1])
+    if argv[:1] == ["--dp-rank"]:
+        return dp_rank(argv[1])
     # the port first: outside a checkout this fails before any output
     from aind_exaspim_neuron_segmentation_tpu_torch import (
         cuda_build,
@@ -1533,6 +2018,13 @@ def main(argv):
         sharded_launches = phase_sharded(
             inference, io, scatter, runner, vol, aff, seg_main, tubes_zip,
             ckpt, card, dev, tmp)
+        t_phase = time.perf_counter()
+        phase_valid_decoder(inference, runner, vol, ckpt, card, dev)
+        print(f"valid-region phase {time.perf_counter() - t_phase:.3f} s "
+              f"[{card}]")
+        scatter.scatter_batch.launches = 0
+        phase_data_parallel(train, data_handling, train_ds, card, dev, tmp)
+        dp_launches = scatter.scatter_batch.launches
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 
@@ -1547,7 +2039,8 @@ def main(argv):
           f"{lazy_launches} on the lazy main path (phase 9), "
           f"{train_launches} in training (phase 13: no hand kernel there), "
           f"{sharded_launches} on the sharded path at world size 1 (phase "
-          f"14 (a); each rank's own count in (b))")
+          f"14 (a); each rank's own count in (b)), {dp_launches} in "
+          f"data-parallel training (phase 15 (b))")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -355,3 +355,107 @@ def test_predict_sharded_nccl_world_one_equals_predict(cuda, no_tf32):
     want_plan, want_q = predigest.predigest_slab(torch.from_numpy(got))
     np.testing.assert_array_equal(plan, want_plan.numpy())
     np.testing.assert_array_equal(qaff, want_q.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fused", [False, True], ids=["bn", "folded"])
+def test_valid_region_forward_on_card_equals_sliced_full(cuda, no_tf32,
+                                                         fused):
+    """``UNet3D(valid_trim=t)`` on the card, float32 (TF32 off), width
+    0.25, 32^3: within MAE 1e-5 of the sliced full forward. The row-ranged
+    upsample is ``F.interpolate``'s own rows, so only cuDNN's choice of
+    algorithm for the unpadded convs could move a value (measured on the
+    H100: no value moves)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
+        fold_batchnorm,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
+        UNet3D,
+        init_weights,
+    )
+
+    net = UNet3D(output_channels=3, width_multiplier=0.25)
+    init_weights(net, torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm3d):
+                m.running_mean.copy_(0.2 * torch.randn(
+                    m.running_mean.shape, generator=gen))
+                m.running_var.copy_(0.5 + torch.rand(
+                    m.running_var.shape, generator=gen))
+    if fused:
+        state = fold_batchnorm(net.state_dict())
+        net = UNet3D(output_channels=3, width_multiplier=0.25, fused_bn=True)
+        net.load_state_dict(state)
+    net = net.to(cuda).eval()
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (2, 1, 32, 32, 32)).astype(np.float32)).to(cuda)
+    with torch.no_grad():
+        full = net(x)
+        for t in (2, 4, 8):
+            fast = net(x, valid_trim=t)
+            fig = parity_line(
+                f"valid_trim={t} fused={fused} on the card vs sliced full",
+                fast.cpu().numpy(),
+                full[:, :, t:-t, t:-t, t:-t].cpu().numpy())
+            assert fig["mae"] <= 1e-5, (t, fig)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+def test_sync_batchnorm_world_one_on_card_equals_native(cuda, dtype):
+    """The synchronized BatchNorm with no process group (world size 1)
+    against ``nn.BatchNorm3d`` on the card, two train steps. Float32:
+    outputs, input gradients, weight and bias gradients and running
+    statistics within 1e-5 relative of the native module's. Bf16 input
+    (float32 parameters, as under autocast): both held to the native
+    module in float64 on the same bf16 values, the outputs and input
+    gradients within 2^-7 relative (one bf16 rounding), the rest within
+    1e-4 (float32 sums); the native bf16 module's own figures print
+    beside them."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.parallel.sync_batchnorm import (  # noqa: E501
+        SyncBatchNorm3d,
+    )
+
+    rng = np.random.default_rng(3)
+    x0 = torch.from_numpy(rng.normal(0.5, 1.5, (4, 8, 12, 12, 12)).astype(
+        np.float32)).to(cuda, dtype)
+    dy = torch.from_numpy(rng.standard_normal(x0.shape).astype(
+        np.float32)).to(cuda, dtype)
+
+    def run(cls, x0, dy, param_dtype):
+        bn = cls(8).to(cuda, param_dtype).train()
+        with torch.no_grad():
+            bn.weight.copy_(torch.linspace(0.5, 1.5, 8))
+            bn.bias.copy_(torch.linspace(-0.3, 0.3, 8))
+        x = x0.clone().requires_grad_(True)
+        for _ in range(2):
+            bn(x).backward(dy)
+        return dict(y=bn(x).detach(), dx=x.grad, dweight=bn.weight.grad,
+                    dbias=bn.bias.grad, running_mean=bn.running_mean,
+                    running_var=bn.running_var)
+
+    def rel(got, want):
+        return {k: float((got[k].double() - want[k].double()).abs().max()
+                         / want[k].double().abs().max()) for k in want}
+
+    native = run(torch.nn.BatchNorm3d, x0, dy, torch.float32)
+    sync = run(SyncBatchNorm3d, x0, dy, torch.float32)
+    if dtype == torch.float32:
+        figures = rel(sync, native)
+        parity_line("SyncBatchNorm3d world 1 vs nn.BatchNorm3d on the card "
+                    "(float32)", **figures)
+        assert max(figures.values()) <= 1e-5, figures
+        return
+    exact = run(torch.nn.BatchNorm3d, x0.double(), dy.double(),
+                torch.float64)
+    figures, native_figures = rel(sync, exact), rel(native, exact)
+    parity_line("SyncBatchNorm3d world 1, bf16 input, vs float64 on the card",
+                **figures)
+    parity_line("nn.BatchNorm3d, bf16 input, vs float64 on the card",
+                **native_figures)
+    for key, value in figures.items():
+        assert value <= (2 ** -7 if key in ("y", "dx") else 1e-4), (key,
+                                                                   value)

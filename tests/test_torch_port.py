@@ -402,6 +402,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"import {PORT}.parallel, {PORT}.parallel.stats\n"
         f"import {PORT}.parallel.mesh, {PORT}.parallel.sharded_inference\n"
         f"import {PORT}.utils.profiling, {PORT}.postprocess.distributed\n"
+        f"import {PORT}.ops.upsample, {PORT}.models.unet3d\n"
+        f"import {PORT}.parallel.sync_batchnorm, {PORT}.core.patches\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"

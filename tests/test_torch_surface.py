@@ -5,10 +5,10 @@ public function and class the JAX module defines must exist in the port
 with the same parameter names, kinds and defaults, in order. The port may
 add one parameter the JAX package has no use for, ``device`` (where the
 work runs; ``Trainer(device=)`` among them). Listed below, each with its
-reason, are the names the port does not have yet (queued in ROADMAP.md)
-or has by another design (the framework's own model and weight types);
-the test also checks that each listed gap is still a gap, so the lists
-stay exact. Then the keywords this surface once dropped are held to the
+reason, are the names the port has by another design (the framework's
+own model and weight types); the test also checks that each listed name
+is still a JAX name of a shared module, so the list stays exact. Then
+the keywords this surface once dropped are held to the
 JAX package's meaning: ``skeletonize(parallel=...)`` gives the same
 skeletons for any thread count, ``segment_streaming(quantile_pct=...)``
 and ``bbox_scan(labels, z_lo, z_hi)`` equal the JAX package's output.
@@ -40,35 +40,6 @@ JAX_PKG = "aind_exaspim_neuron_segmentation_tpu"
 PORT = JAX_PKG + "_torch"
 PORT_ONLY = ("device",)
 
-# Not in the port yet, by ROADMAP.md item; names relative to the package.
-KNOWN_GAPS = {
-    # item 4: data-parallel training (the Trainer's sharding specs)
-    "parallel.replicated": 4, "parallel.sharded_first_axis": 4,
-    "parallel.mesh.replicated": 4, "parallel.mesh.sharded_first_axis": 4,
-    # item 6: the valid-region decoder
-    "models.unet3d.trilinear_upsample_x2": 6,
-    "models.unet3d.x2_support_trim": 6,
-    # item 7: the remaining single-device surface
-    "core.get_patch_slices": 7, "core.patches.get_patch_slices": 7,
-    "core.blend_weight_map": 7, "core.patches.blend_weight_map": 7,
-    "core.get_affinity_mask": 7, "core.affinities.get_affinity_mask": 7,
-    "core.get_offset_masks": 7, "core.affinities.get_offset_masks": 7,
-    "utils.img_util.get_affinity_channels": 7,
-    "utils.img_util.get_affinity_mask": 7,
-    "utils.img_util.get_offset_masks": 7, "utils.img_util.add_padding": 7,
-    "utils.img_util.get_patch": 7, "utils.img_util.get_patch_slices": 7,
-    "utils.img_util.get_slices": 7, "utils.img_util.is_contained": 7,
-    "utils.img_util.make_segmentation_colormap": 7,
-    "utils.img_util.plot_mips": 7, "utils.img_util.plot_segmentation_mips": 7,
-    "utils.img_util.list_block_paths": 7, "utils.util.list_gcs_paths": 7,
-    "utils.util.list_gcs_subprefixes": 7,
-    "utils.util.find_subprefix_with_keyword": 7,
-}
-# Parameters of a shared name the port does not take yet (ROADMAP item 4).
-PENDING_PARAMS = {
-    "machine_learning.Trainer": ("mesh",),
-    "machine_learning.train.Trainer": ("mesh",),
-}
 # By design: the JAX package's Flax / jnp types and their converters,
 # which the port replaces with PyTorch's own (the port's names are given).
 BY_DESIGN = {
@@ -175,14 +146,12 @@ def test_signatures_match_jax():
         if qual in BY_DESIGN:
             continue
         if pobj is None:
-            if qual not in KNOWN_GAPS:
-                missing.append(qual)
+            missing.append(qual)
             continue
         if qual in FORWARDS:
             target, name = FORWARDS[qual].rsplit(".", 1)
             jobj = getattr(_import(JAX_PKG, target), name)
-        want = [p for p in _params(jobj)
-                if p[0] not in PENDING_PARAMS.get(qual, ())]
+        want = _params(jobj)
         added = set(PORT_ONLY) - {p[0] for p in want}
         got = [p for p in _params(pobj) if p[0] not in added]
         if got != want:
@@ -196,14 +165,8 @@ def test_signatures_match_jax():
 
 def test_listed_gaps_are_still_gaps():
     shared = {qual: pobj for qual, _, pobj in _shared()}
-    for qual in KNOWN_GAPS:
+    for qual in list(BY_DESIGN) + list(FORWARDS):
         assert qual in shared, f"{qual} is no JAX name of a shared module"
-        assert shared[qual] is None, f"{qual} is ported: drop it from the list"
-    for qual in list(BY_DESIGN) + list(PENDING_PARAMS):
-        assert qual in shared, f"{qual} is no JAX name of a shared module"
-    for qual, params in PENDING_PARAMS.items():
-        names = [p[0] for p in _params(shared[qual])]
-        assert not set(params) & set(names), f"{qual} takes {params} now"
 
 
 def _labels():

@@ -540,12 +540,12 @@ def test_raw_wire_upload_bit_identical_to_host_reconstruction(tmp_path):
     raw, mn, inv = ds.get_raw_input_patch(0, (20, 20, 20))
     want = dh.reconstruct_normalized(raw, mn, inv)
     tr = port_trainer(tmp_path)
-    x, y, w = tr._to_device_batch(
+    x, y, w, n_real = tr._to_device_batch(
         (raw[None].astype(np.uint16), np.array([[mn, inv]], np.float32)),
         np.full((1,) + raw.shape, 65535, np.uint16))
     assert x.numpy().tobytes() == want[None].tobytes()
     assert y.dtype == torch.int32 and int(y.min()) == 65535
-    assert w.tolist() == [1.0]
+    assert w.tolist() == [1.0] and n_real == 1
 
 
 @pytest.mark.parametrize("quirk", [False, True])

@@ -58,6 +58,97 @@ def _mesh(parallel, shape):
     return parallel.make_mesh_2d(tuple(shape))
 
 
+class ListDataset:
+    """A fixed list of (x, y) examples from ``xs`` / ``ys`` arrays: a
+    dataset of any length, e.g. one whose last batch is ragged."""
+
+    def __init__(self, xs, ys):
+        self.xs, self.ys = xs, ys
+
+    def __len__(self):
+        return len(self.xs)
+
+    def __getitem__(self, i):
+        return self.xs[i], self.ys[i]
+
+
+def record_epochs(trainer):
+    """Keep each epoch's loss, precision and recall lists (``train_`` and
+    ``val_``) in ``trainer.epoch_lists`` before the Trainer reduces them
+    to means."""
+    import copy
+
+    trainer.epoch_lists = []
+    reduce = trainer.update_tensorboard
+
+    def update_tensorboard(stats, epoch, prefix):
+        trainer.epoch_lists.append((prefix, copy.deepcopy(stats)))
+        return reduce(stats, epoch, prefix)
+
+    trainer.update_tensorboard = update_tensorboard
+
+
+def record_first_step(trainer):
+    """Keep what the optimizer's first step sees: the gradients (summed
+    over the mesh) in ``trainer.first_grads`` and the BatchNorm running
+    statistics the first forward left in ``trainer.first_stats``, by
+    name."""
+    step = trainer.optimizer.step
+    trainer.first_grads = trainer.first_stats = None
+
+    def first(*args, **kwargs):
+        if trainer.first_grads is None:
+            trainer.first_grads = {
+                n: p.grad.detach().numpy().copy()
+                for n, p in trainer.model.named_parameters()}
+            trainer.first_stats = {
+                n: b.numpy().copy() for n, b in trainer.model.named_buffers()
+                if n.endswith(("running_mean", "running_var"))}
+        return step(*args, **kwargs)
+
+    trainer.optimizer.step = first
+
+
+def train_datasets(data, spec):
+    """(train, validation) datasets of a train step's ``data`` npz."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        data_handling as dh,
+    )
+
+    if spec["mode"] == "list":
+        ds = ListDataset(data["xs"], data["ys"])
+        return ds, ds
+    imgs = [data[f"img{k}"] for k in range(spec["volumes"])]
+    labs = [data[f"lab{k}"] for k in range(spec["volumes"])]
+    patch = tuple(spec["patch"])
+    return (dh.TrainDataset(imgs, labs, patch_shape=patch, seed=spec["seed"],
+                            return_label_patches=True),
+            dh.ValidateDataset(imgs, labs, patch_shape=patch,
+                               containment_buffer=0))
+
+
+def run_train(spec, out_dir, mesh):
+    """A Trainer (on ``mesh``, or alone with None) run on a train step's
+    data; its final state, first-step gradients and epoch lists."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
+        train,
+    )
+
+    data = np.load(spec["data"])
+    trainer = train.Trainer(out_dir, mesh=mesh, device="cpu", **spec["kw"])
+    if spec.get("init"):
+        trainer.model.load_state_dict(torch.load(spec["init"]))
+    record_epochs(trainer)
+    record_first_step(trainer)
+    best = trainer.run(*train_datasets(data, spec))
+    return dict(
+        state={k: v.numpy().copy()
+               for k, v in trainer.model.state_dict().items()},
+        first_grads=trainer.first_grads, first_stats=trainer.first_stats,
+        epochs=trainer.epoch_lists,
+        best_f1=best, log_files=sorted(os.listdir(trainer.log_dir)))
+
+
 def run_step(kind, spec, models):
     """One step's result on this rank (None where it has none)."""
     import torch.distributed as dist
@@ -127,6 +218,67 @@ def run_step(kind, spec, models):
             _load_input(spec), stats_out=stats_out, **spec["kw"])
         return dict(swc={k: v.to_swc() for k, v in local.items()},
                     stats=stats_out)
+    if kind == "sync_bn":
+        from aind_exaspim_neuron_segmentation_tpu_torch.parallel import (
+            sync_batchnorm,
+        )
+
+        data = np.load(spec["input"])
+        rank, world = dist.get_rank(), dist.get_world_size()
+        x = torch.from_numpy(np.array_split(data["x"], world)[rank])
+        dy = torch.from_numpy(np.array_split(data["dy"], world)[rank])
+        bn = sync_batchnorm.SyncBatchNorm3d(
+            x.shape[1], mesh=parallel.make_mesh()).to(x.dtype)
+        with torch.no_grad():
+            bn.weight.copy_(torch.from_numpy(data["weight"]))
+            bn.bias.copy_(torch.from_numpy(data["bias"]))
+        x.requires_grad_(True)
+        out = {}
+        for _ in range(spec.get("steps", 1)):
+            y = bn(x)
+            y.backward(dy)
+        out.update(y=y.detach().numpy(), dx=x.grad.numpy(),
+                   dweight=bn.weight.grad.numpy(),
+                   dbias=bn.bias.grad.numpy())
+        out.update({k: v.numpy() for k, v in bn.state_dict().items()})
+        return out
+    if kind == "train":
+        rank = dist.get_rank()
+        out_dir = os.path.join(spec["out"], f"r{rank}")
+        return run_train(spec, out_dir, parallel.make_mesh(spec["mesh"]))
+    if kind == "bad_batch":
+        from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (  # noqa: E501
+            train,
+        )
+
+        try:
+            train.Trainer(spec["out"], batch_size=3, width_multiplier=0.25,
+                          mesh=parallel.make_mesh(2), device="cpu")
+        except ValueError as exc:
+            return dict(error=str(exc))
+        return dict(error=None)
+    if kind == "collect":
+        # every rank's per-example metrics, two ragged steps (the last
+        # with one row a rank): the gathered lists must run in block
+        # order and stop at n_real
+        from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (  # noqa: E501
+            train,
+        )
+
+        trainer = train.Trainer(spec["out"], batch_size=4,
+                                width_multiplier=0.25,
+                                mesh=parallel.make_mesh(2), device="cpu")
+        rank = dist.get_rank()
+        pending = [
+            (n_real, torch.tensor(10.0 * step + rank),
+             torch.tensor([100.0 * step + rows * rank + i
+                           for i in range(rows)]),
+             torch.tensor([-100.0 * step - rows * rank - i
+                           for i in range(rows)]))
+            for step, (n_real, rows) in enumerate(((4, 2), (3, 2), (1, 1)))]
+        stats = {"loss": [], "precision": [], "recall": []}
+        trainer._collect(pending, stats)
+        return stats
     raise ValueError(f"unknown step kind {kind!r}")
 
 
