@@ -134,7 +134,26 @@ Phases (any failure raises, and the script exits non-zero):
     ``python -m aind_exaspim_neuron_segmentation_tpu_torch train
     --distributed`` in two processes on phase 13's stores, patch 96,
     batch 4, 1 epoch: one JSON line, rank 1's run under ``.rank1``;
-16. one ``{"kernels": [...]}`` line, the card line, and as the last line
+16. the entry points, the examples and the tools, each through the
+    entry point a user calls: (a) ``entry.entry()``, its bf16 output
+    (1, 3, 96, 96, 96), finite, in [0, 1], held to the same seeded module
+    in float32 (TF32 off, MAE <= 5e-3, max-abs <= 0.15) and timed warm
+    with CUDA events; (e) ``tools.traffic_audit`` at batch 16 with trim 0
+    and trim 8 in subprocesses, their per-op tables and measured/minimal
+    ratios printed; (b) ``entry.dryrun_multichip(8)``: eight gloo ranks
+    on the card, a 4 x 2 mesh, the digest's distributed segmentation and
+    skeletonization bit-identical to one process, K1's launches counted
+    on each rank; (c) the three examples as subprocesses (no
+    ``--device``), together and while (b) runs: ``run_pipeline``'s zip
+    holds exactly the ids of its segments, ``run_beyond_ram``'s label
+    store equals the dense labels of its affinity store,
+    ``run_multichip``'s 1-D result lies within 1e-6 of ``predict``, each
+    one's K1 launches counted; (d) ``tools.beyond_ram_proof`` at N = 512
+    (the tool's 1024 cut to the time limit) in one process and then with
+    ``--ranks 2`` on the same store, the two zips entry-identical, the
+    walls, the RSS stamps and the peak RSS printed (the order of the run:
+    a, e, b with c, d);
+17. one ``{"kernels": [...]}`` line, the card line, and as the last line
     ``{"ok": true, "device": {...}}``.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -159,7 +178,11 @@ FP32_OPS_PER_S = 67e12
 # ~50 ms of device clock cycles, longer than the host takes to queue a
 # timed run of K1, its plain loop or index_add_
 SPIN_CYCLES = 100_000_000
-K1_SOURCE = "aind_exaspim_neuron_segmentation_tpu_torch/csrc/scatter_blend.cu"
+PORT = "aind_exaspim_neuron_segmentation_tpu_torch"
+K1_SOURCE = f"{PORT}/csrc/scatter_blend.cu"
+# the beyond-RAM proof's edge in phase 16 (d): the tool's default 1024
+# cut to fit the script's time limit
+PROOF_N = 512
 K1_REPLACES = (
     "aind_exaspim_neuron_segmentation_tpu/ops/experimental/"
     "pallas_stitch.py:95"
@@ -1946,6 +1969,230 @@ def phase_sharded(inference, io, scatter, runner, vol, aff, seg_main,
     return launches
 
 
+def start_module(module, args, tmp, name):
+    """Start ``python -m <port>.<module> args`` from the checkout's root
+    (no ``--device``: the card), its output to ``TMP/<name>.log``."""
+    log = os.path.join(tmp, f"{name}.log")
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", f"{PORT}.{module}", *map(str, args)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), stdout=f,
+            stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def finish_module(started, name, timeout):
+    """Wait for a :func:`start_module` process (killed past ``timeout``
+    s); fail unless it exited 0. Returns its output, its last line as
+    JSON and its wall seconds."""
+    proc, log, t0 = started
+    try:
+        code = proc.wait(timeout=max(timeout - (time.perf_counter() - t0),
+                                     1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        code = "timeout"
+    wall = time.perf_counter() - t0
+    with open(log) as f:
+        out = f.read()
+    check(code == 0, f"{name} exited {code}:\n{out[-6000:]}")
+    return out, json.loads(out.strip().splitlines()[-1]), wall
+
+
+@tf32_off()
+def phase_entry(card, dev):
+    """Phase 16 (a): ``entry()`` on the card, its bf16 output held to the
+    same seeded module in float32 (TF32 off), and its warm time."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.entry import entry
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
+        UNet3D,
+        init_weights,
+    )
+
+    forward_step, (module, x) = entry()
+    check(module.outc.conv.weight.dtype == torch.bfloat16
+          and not module.training and x.device.type == "cuda",
+          "entry() module is not bf16 eval on the card")
+    got = forward_step(module, x)
+    check(tuple(got.shape) == (1, 3, 96, 96, 96)
+          and got.dtype == torch.float32, f"entry() output {got.shape}")
+    check(bool(torch.isfinite(got).all()) and got.min() >= 0
+          and got.max() <= 1, "entry() output non-finite or out of [0, 1]")
+    ref = UNet3D(output_channels=3)
+    init_weights(ref, torch.Generator().manual_seed(0))
+    want = forward_step(ref.to(dev).eval(), x)
+    diff = (got - want).abs()
+    mae, max_abs = float(diff.mean()), float(diff.max())
+    times = []
+    for i in range(7):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        forward_step(module, x)
+        end.record()
+        end.synchronize()
+        if i >= 2:
+            times.append(start.elapsed_time(end))
+    print(f"entry (a) forward_step, bf16 full width, 1 x 96^3: vs float32 "
+          f"(TF32 off) MAE {mae:.3e}, max abs {max_abs:.3e}; output mean "
+          f"{float(got.mean()):.4f}; warm {np.median(times):.3f} ms median "
+          f"of 5 (runs {[round(t, 3) for t in times]}) [{card}]")
+    check(mae <= 5e-3 and max_abs <= 0.15,
+          f"entry() bf16 vs float32 MAE {mae} > 5e-3 or max abs {max_abs}")
+    del module, ref
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun(card):
+    """Phase 16 (b): ``dryrun_multichip(8)``, eight gloo ranks on the
+    card; returns each rank's K1 launches."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.entry import (
+        dryrun_multichip,
+    )
+
+    t0 = time.perf_counter()
+    fig = dryrun_multichip(8, timeout=600)
+    wall = time.perf_counter() - t0
+    check(fig["mesh2"] == [4, 2] and fig["aff_2d"] == [3, 48, 44, 20],
+          f"dryrun meshes {fig}")
+    check(sum(fig["k1_launches"]) > 0,
+          f"dryrun phase 3 launched no K1: {fig['k1_launches']}")
+    print(f"entry (b) dryrun_multichip(8), 8 gloo ranks on one card: loss "
+          f"{fig['loss']:.4f}, {fig['n_segments']} segments and "
+          f"{fig['n_skeletons']} skeletons bit-identical (phases 4-5), K1 "
+          f"launches per rank {fig['k1_launches']}; {wall:.3f} s with "
+          f"start-up [{card}]")
+    return fig["k1_launches"]
+
+
+EXAMPLES = ("run_pipeline", "run_beyond_ram", "run_multichip")
+
+
+def start_examples(tmp):
+    """Phase 16 (c), started: the three examples as subprocesses on the
+    card (no ``--device``), at the same time."""
+    return {n: start_module(f"examples.{n}", [os.path.join(tmp, n)], tmp, n)
+            for n in EXAMPLES}
+
+
+def phase_examples(inference, io, card, started):
+    """Phase 16 (c): each example of :func:`start_examples` exits 0 and
+    its result is checked; returns K1's launches in each."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.examples.run_pipeline import (  # noqa: E501
+        synthetic_brain,
+    )
+    from aind_exaspim_neuron_segmentation_tpu_torch.utils import img_util
+
+    _, lab = synthetic_brain()
+    ids = np.unique(inference.affinities_to_segmentation(
+        img_util.get_affinity_channels(lab).astype(np.float32)))
+    results = {}
+    for n in EXAMPLES:
+        _, res, wall = finish_module(started[n], n, 900)
+        results[n] = res
+        print(f"entry (c) examples.{n}: exit 0 in {wall:.3f} s, K1 "
+              f"launches {res['k1_launches']}; result {res} [{card}]")
+
+    pipe = results["run_pipeline"]
+    names = set(zip_entries(pipe["zip"]))
+    check(names == {f"{i}.swc" for i in ids[ids > 0]},
+          f"run_pipeline zip {sorted(names)} != segments {ids}")
+    ram = results["run_beyond_ram"]
+    aff = io.read(ram["affinities"])[:]
+    dense = inference.affinities_to_segmentation(aff)
+    check(np.array_equal(io.read(ram["segmentation"])[:], dense),
+          "run_beyond_ram label store != dense labels of its affinities")
+    multi = results["run_multichip"]
+    check(multi["max_abs_1d"] <= 1e-6,
+          f"run_multichip 1-D max abs {multi['max_abs_1d']} > 1e-6")
+    launches = dict(run_pipeline=pipe["k1_launches"],
+                    run_beyond_ram=ram["k1_launches"],
+                    run_multichip=multi["k1_launches"])
+    check(pipe["k1_launches"] > 0 and ram["k1_launches"] > 0
+          and sum(multi["k1_launches"]) > 0,
+          f"an example launched no K1: {launches}")
+    print(f"entry (c) run_pipeline zip == its {len(names)} segment ids; "
+          f"run_beyond_ram labels == dense labels ({int(dense.max())} "
+          f"segments, {ram['n_skeletons']} skeletons); run_multichip 1-D "
+          f"max abs {multi['max_abs_1d']:.3e} from predict [{card}]")
+    return launches
+
+
+def phase_proof(card, tmp, n=PROOF_N):
+    """Phase 16 (d): ``tools.beyond_ram_proof`` at ``n``^3, one process
+    and then ``--ranks 2`` on the same store (the tool asserts the two
+    zips entry-identical)."""
+    work = os.path.join(tmp, "proof")
+    out, single, _ = finish_module(start_module(
+        "tools.beyond_ram_proof", [n, work], tmp, "proof_single"),
+        "beyond_ram_proof", 900)
+    out_r, ranks, _ = finish_module(start_module(
+        "tools.beyond_ram_proof", [n, work, "--ranks", 2], tmp,
+        "proof_ranks"), "beyond_ram_proof --ranks 2", 900)
+    for line in (out + out_r).splitlines():
+        if " cur=" in line or line.startswith("PEAK RSS"):
+            print(f"entry (d) {line}")
+    check(ranks["entry_identical"] is True
+          and ranks["n_skeletons"] == single["n_skeletons"] > 0,
+          f"proof zips: {single} / {ranks}")
+    for res in (single, ranks):
+        print(f"entry (d) beyond_ram_proof N={n} ranks {res['ranks']}: "
+              f"walls {res['walls_s']}, peak RSS {res['peak_rss_gb']:.3f} "
+              f"GB, {res['n_skeletons']} skeletons [{card}; "
+              f"{os.cpu_count()} CPUs]")
+    print(f"entry (d) the --ranks 2 zip is entry-identical to the "
+          f"single-process zip ({ranks['n_skeletons']} entries)")
+
+
+def phase_audit(card, tmp):
+    """Phase 16 (e): ``tools.traffic_audit`` at batch 16, trim 0 and 8;
+    prints each table and the measured/minimal ratio."""
+    for trim in (0, 8):
+        out, fig, wall = finish_module(start_module(
+            "tools.traffic_audit", ["--batch", 16, "--trim", trim, "--top",
+                                    25], tmp, f"audit{trim}"),
+            f"traffic_audit --trim {trim}", 600)
+        table = out[out.index("# Device-memory traffic audit"):]
+        print(table.rsplit("\n", 2)[0])
+        check(fig["measured_gb"] > 0 and fig["op_ms"] > 0,
+              f"traffic audit found no device work: {fig}")
+        print(f"entry (e) traffic_audit B=16 trim {trim}: measured "
+              f"{fig['measured_gb']:.3f} GB/iter, minimal "
+              f"{fig['minimal_gb']:.3f} GB, ratio {fig['ratio']:.3f}x, op "
+              f"device time {fig['op_ms']:.3f} ms/iter (+{fig['orphan_ms']:.3f}"
+              f" ms of kernels with no aten parent); {wall:.3f} s [{card}]")
+
+
+def phase_entry_points(inference, io, card, dev, tmp):
+    """Phase 16: the entry points, the examples and the tools on the
+    card; returns K1's launches on the dry run and in the examples."""
+    t_phase = time.perf_counter()
+    stamps = {}
+    t0 = time.perf_counter()
+    phase_entry(card, dev)
+    phase_audit(card, tmp)
+    stamps["entry_and_audit_s"] = time.perf_counter() - t0
+    # (b) and (c) at the same time: both are checks, not timings
+    t0 = time.perf_counter()
+    started = start_examples(tmp)
+    try:
+        dryrun = phase_dryrun(card)
+        examples = phase_examples(inference, io, card, started)
+    finally:  # no example outlives a failure here
+        for proc, _, _ in started.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    stamps["dryrun_and_examples_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_proof(card, tmp)
+    stamps["proof_s"] = time.perf_counter() - t0
+    print(f"entry-points phase {time.perf_counter() - t_phase:.3f} s "
+          f"({ {k: round(v, 1) for k, v in stamps.items()} }) [{card}]")
+    return dryrun, examples
+
+
 
 def main(argv):
     """Run every phase; returns the exit code."""
@@ -2025,6 +2272,9 @@ def main(argv):
         scatter.scatter_batch.launches = 0
         phase_data_parallel(train, data_handling, train_ds, card, dev, tmp)
         dp_launches = scatter.scatter_batch.launches
+        torch.cuda.empty_cache()
+        dryrun_launches, example_launches = phase_entry_points(
+            inference, io, card, dev, tmp)
     if "--profile" in argv:
         profile_predict(inference, runner, vol)
 
@@ -2040,7 +2290,9 @@ def main(argv):
           f"{train_launches} in training (phase 13: no hand kernel there), "
           f"{sharded_launches} on the sharded path at world size 1 (phase "
           f"14 (a); each rank's own count in (b)), {dp_launches} in "
-          f"data-parallel training (phase 15 (b))")
+          f"data-parallel training (phase 15 (b)), {dryrun_launches} on "
+          f"the ranks of dryrun_multichip(8) (phase 16 (b)), "
+          f"{example_launches} in the examples (phase 16 (c))")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

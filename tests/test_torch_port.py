@@ -404,6 +404,11 @@ def test_port_imports_no_jax_in_a_fresh_process():
         f"import {PORT}.utils.profiling, {PORT}.postprocess.distributed\n"
         f"import {PORT}.ops.upsample, {PORT}.models.unet3d\n"
         f"import {PORT}.parallel.sync_batchnorm, {PORT}.core.patches\n"
+        f"import {PORT}.entry, {PORT}.parallel.launch, {PORT}.examples\n"
+        f"import {PORT}.examples.run_pipeline\n"
+        f"import {PORT}.examples.run_beyond_ram\n"
+        f"import {PORT}.examples.run_multichip\n"
+        f"import {PORT}.tools.beyond_ram_proof, {PORT}.tools.traffic_audit\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'flax', "
         "'aind_exaspim_neuron_segmentation_tpu') or m.startswith(('jax.', "
         "'flax.', 'aind_exaspim_neuron_segmentation_tpu.')))\n"
