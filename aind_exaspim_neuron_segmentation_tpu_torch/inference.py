@@ -58,6 +58,9 @@ from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
     predigest_slab,
 )
+from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
+    annotate,
+)
 
 
 class ModelRunner:
@@ -291,24 +294,28 @@ def predict(
         write_zarr(out_path, out)
         return read(out_path)
 
+    # The first slab's load computes the normalization (so it falls under
+    # the first slab's ``predict.normalize`` span); later slabs reuse it.
+    norm = []
     if lazy:
-        mn, mx = streaming_percentile(
-            img, normalization_percentiles,
-            transform=lambda b: np.minimum(b, brightness_clip),
-        )
-
         def load_slab(lo, hi):
+            if not norm:
+                norm.extend(streaming_percentile(
+                    img, normalization_percentiles,
+                    transform=lambda b: np.minimum(b, brightness_clip),
+                ))
+            mn, mx = norm
             block = np.minimum(np.asarray(img[lo:hi], np.float32),
                                brightness_clip)
             block = np.clip((block - mn) / (mx - mn + 1e-8), 0.0, 1.0)
             return block.astype(np.float32)
     else:
-        img = np.minimum(img, brightness_clip)
-        img = normalize(img, percentiles=normalization_percentiles)
-        img = np.ascontiguousarray(img, dtype=np.float32)
-
         def load_slab(lo, hi):
-            return img[lo:hi]
+            if not norm:
+                vol = normalize(np.minimum(img, brightness_clip),
+                                percentiles=normalization_percentiles)
+                norm.append(np.ascontiguousarray(vol, dtype=np.float32))
+            return norm[0][lo:hi]
 
     device = runner.device
     host_windows = windows = None
@@ -355,19 +362,20 @@ def predict(
 
     def fetch(entry):
         own_lo, own_hi, (copies, event) = entry
-        if event is not None:
-            event.synchronize()
-        if writers is not None:
-            blocks = [c.numpy() for c in copies]
-            if not affinity_mode:
-                blocks = [blocks[0][0]]
-            for writer, block in zip(writers, blocks):
-                writer.append(block)
-        elif predigest:
-            plan_out[own_lo:own_hi] = copies[0].numpy()
-            qaff_out[:, own_lo:own_hi] = copies[1].numpy()
-        else:
-            out[:, own_lo:own_hi] = copies[0].numpy()
+        with annotate("predict.copy_out"):
+            if event is not None:
+                event.synchronize()
+            if writers is not None:
+                blocks = [c.numpy() for c in copies]
+                if not affinity_mode:
+                    blocks = [blocks[0][0]]
+                for writer, block in zip(writers, blocks):
+                    writer.append(block)
+            elif predigest:
+                plan_out[own_lo:own_hi] = copies[0].numpy()
+                qaff_out[:, own_lo:own_hi] = copies[1].numpy()
+            else:
+                out[:, own_lo:own_hi] = copies[0].numpy()
         if verbose:
             print(f"predict: planes [{own_lo}, {own_hi}) of {dim[0]}",
                   file=sys.stderr)
@@ -379,11 +387,14 @@ def predict(
     prev_plane = None  # predigest: previous slab's last z-aff plane
     for plan in plans:
         in_lo, in_hi = plan["in_range"]
+        with annotate("predict.normalize"):
+            slab = load_slab(in_lo, min(in_hi, dim[0]))
         # Pad with the REAL grid so the reflection anchors at the last
         # patch's tail segment.
-        slab, _ = stitch.reflect_pad_to_grid(
-            load_slab(in_lo, min(in_hi, dim[0])), patch_shape, overlap
-        )
+        with annotate("predict.pad"):
+            slab, _ = stitch.reflect_pad_to_grid(slab, patch_shape, overlap)
+        with annotate("predict.upload"):
+            slab = stitch.host_to_device(slab, device)
         starts = [
             (z_starts[r] - in_lo, y, x)
             for r in plan["rows"]
@@ -398,7 +409,7 @@ def predict(
         )
         acc = stitch.accumulate_predictions(
             runner.module,
-            stitch.host_to_device(slab, device),
+            slab,
             np.asarray(starts, dtype=np.int32),
             valid,
             patch_shape=tuple(patch_shape),

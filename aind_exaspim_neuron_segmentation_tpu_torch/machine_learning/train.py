@@ -74,6 +74,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.parallel.sync_batchnorm import (
     convert_sync_batchnorm,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.utils import util
+from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import annotate
 
 
 def cosine_annealing_lr(base_lr, t_max=25, eta_min=0.0):
@@ -292,27 +293,32 @@ class Trainer:
         """One optimizer step on a host batch; returns the loss and the
         per-example precision and recall as device tensors (on a mesh:
         this rank's share of the loss and its rows' metrics)."""
-        x, y, w, n_real = self._to_device_batch(xs, ys)
-        if self.device_augment:
-            n = x.shape[0] * (1 if self._rows is None else self._rows.blocks)
-            params = draw_augment_params(self._augment_generator(epoch, step),
-                                         n, x.shape[2:])
-            if self._rows is not None:
-                params = {k: self._rows.place(v) for k, v in params.items()}
-            x, label = apply_augment(x, y, params)
-            y = self._targets_from_labels(label)
-        elif not y.is_floating_point():
-            y = self._targets_from_labels(y)
+        with annotate("train.input"):
+            x, y, w, n_real = self._to_device_batch(xs, ys)
+            if self.device_augment:
+                n = x.shape[0] * (1 if self._rows is None
+                                  else self._rows.blocks)
+                params = draw_augment_params(
+                    self._augment_generator(epoch, step), n, x.shape[2:])
+                if self._rows is not None:
+                    params = {k: self._rows.place(v)
+                              for k, v in params.items()}
+                x, label = apply_augment(x, y, params)
+                y = self._targets_from_labels(label)
+            elif not y.is_floating_point():
+                y = self._targets_from_labels(y)
         running = None
         if self._rows is not None and self.accumulate_grads_quirk:
             # the running sum is summed over the mesh already
             running = [p.grad for p in self.model.parameters()]
         if self._rows is not None or not self.accumulate_grads_quirk:
             self.optimizer.zero_grad(set_to_none=True)
-        with self._autocast():
-            logits = self.model(x)
-        loss = self._loss(logits, y, w, n_real)
-        loss.backward()
+        with annotate("train.forward"):
+            with self._autocast():
+                logits = self.model(x)
+            loss = self._loss(logits, y, w, n_real)
+        with annotate("train.backward"):
+            loss.backward()
         if self._rows is not None:
             self._reduce_grads(running)
         self.optimizer.step()

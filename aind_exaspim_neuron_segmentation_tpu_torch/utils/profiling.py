@@ -1,10 +1,44 @@
-"""Tracing and per-stage timing.
+"""Tracing and per-stage timing: one kind of span, ``annotate(name)``.
 
-* :class:`StageTimer` -- named wall-clock stages with device
-  synchronization, printable and loggable summary;
-* :func:`trace` -- context manager around ``torch.profiler`` writing a
-  TensorBoard-viewable trace of the host and the card;
-* :func:`annotate` -- a named region in the profiler timeline.
+A span is a :func:`torch.profiler.record_function`. With no profiler
+running it costs a few microseconds, so the spans stay on; under
+``torch.profiler.profile`` they land on the profiler's timeline, beside
+the device's kernels and copies. The program's spans, and the benchmark
+metric (``benchmark/metrics/``) that reads each:
+
+* ``inference.predict``, once per Z slab, in order:
+
+  - ``predict.normalize``: the brightness clip and percentile normalize
+    (the whole volume in memory at the first slab; a lazy volume's
+    streaming percentile at the first slab, then each slab's read and
+    scale) -- ``idle_prep.predict``;
+  - ``predict.pad``: the reflect pad to the patch grid --
+    ``idle_prep.predict``;
+  - ``predict.upload``: the pinned copy and the queued host-to-device
+    copy -- ``idle_upload.predict``;
+  - ``predict.copy_out``: the wait for the slab's device-to-host copy and
+    the host copy into the result (or the append to the Zarr writers) --
+    ``idle_copy_out.predict``;
+
+* ``Trainer.train_batch``, once per step:
+
+  - ``train.input``: the upload, the augmentation and the targets --
+    ``input_device_ms.train``;
+  - ``train.forward``: the autocast forward and the loss --
+    ``forward_device_ms.train``;
+  - ``train.backward``: ``loss.backward()`` -- ``backward_device_ms.train``
+    (on CUDA the autograd engine runs the backward on its own thread,
+    under torch's ``autograd::engine::evaluate_function:`` ops);
+  - the optimizer carries torch's own ``Optimizer.step#AdamW.step`` --
+    ``optimizer_device_ms.train``;
+
+* :class:`StageTimer` stages, under the names their tables print:
+  ``parallel.predict_sharded``'s ``load_slabs``, ``normalize``,
+  ``forward`` and ``fetch_assemble``, and ``examples.run_pipeline``'s.
+  No benchmark cell reaches them.
+
+To see the spans, wrap a call in ``torch.profiler.profile`` and export
+its chrome trace (``prof.export_chrome_trace(path)``).
 """
 
 import contextlib
@@ -19,8 +53,14 @@ def _sync():
         torch.cuda.synchronize()
 
 
+def annotate(name):
+    """Named span in the profiler timeline (``record_function``)."""
+    return torch.profiler.record_function(name)
+
+
 class StageTimer:
-    """Accumulates wall-clock time per named stage.
+    """Accumulates wall-clock time per named stage; each stage is also an
+    :func:`annotate` span of the same name.
 
     ``sync=True`` (default) waits for queued device work at stage
     boundaries (``torch.cuda.synchronize``), so the card's time is
@@ -39,14 +79,15 @@ class StageTimer:
         if self.sync:
             _sync()
         t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync:
-                _sync()
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+        with annotate(name):
+            try:
+                yield
+            finally:
+                if self.sync:
+                    _sync()
+                dt = time.perf_counter() - t0
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def summary(self):
         """Human-readable per-stage totals/averages/percentages."""
@@ -63,26 +104,3 @@ class StageTimer:
     def as_dict(self):
         """Stage-name -> total-seconds mapping."""
         return dict(self.totals)
-
-
-@contextlib.contextmanager
-def trace(log_dir):
-    """Capture a ``torch.profiler`` trace of the host and, where there is
-    one, the card, written under ``log_dir`` for TensorBoard."""
-    from torch.profiler import (
-        ProfilerActivity,
-        profile,
-        tensorboard_trace_handler,
-    )
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities,
-                 on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
-
-
-def annotate(name):
-    """Named region in the profiler timeline (``record_function``)."""
-    return torch.profiler.record_function(name)

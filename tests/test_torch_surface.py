@@ -78,6 +78,9 @@ BY_DESIGN = {
     "core.normalize.normalize_jax": "core.normalize.normalize_device",
     "core.normalize.preprocess_jax": "core.normalize.preprocess_device",
     "ops.augment_device.augment_batch": "ops.augment_device.apply_augment",
+    # the port has one tracing primitive, annotate(); a profile of its
+    # spans is torch.profiler.profile's own (export_chrome_trace)
+    "utils.profiling.trace": "torch.profiler.profile",
 }
 # JAX lazy-import wrappers ``f(x, **kwargs)``: the function they forward
 # to is the surface.
