@@ -54,7 +54,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
     UNet3D,
     init_weights,
 )
-from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
+from aind_exaspim_neuron_segmentation_tpu_torch.ops import prep, stitch
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
     predigest_slab,
 )
@@ -213,9 +213,15 @@ def predict(
 ):
     """Sliding-window affinity / foreground prediction.
 
-    Brightness clip, full-volume percentile normalization (host), the
+    Brightness clip, full-volume percentile normalization, the
     overlapping patch grid, sigmoid, ``trim``-voxel border trim, and the
     hit-count blend (zero where never covered), as in the JAX package.
+    The clip, the normalization and the grid's reflect pad run on the
+    device for an in-memory uint8 or uint16 volume (the raw integers are
+    uploaded, the percentiles come from an exact histogram:
+    :mod:`.ops.prep`) and on the host for any other input; both give the
+    same bits. ``predict.device_prep_slabs`` counts the slabs prepared on
+    the device.
 
     ``img``: (D, H, W) or (1, 1, D, H, W), in memory (numpy, a list, or a
     tensor on any device) or a lazy chunked handle (``io.read`` of a zarr
@@ -297,7 +303,10 @@ def predict(
     # The first slab's load computes the normalization (so it falls under
     # the first slab's ``predict.normalize`` span); later slabs reuse it.
     norm = []
-    if lazy:
+    device_prep = prep.takes_device_prep(img, brightness_clip)
+    if device_prep:
+        cap = prep.histogram_cap(img.dtype, brightness_clip)
+    elif lazy:
         def load_slab(lo, hi):
             if not norm:
                 norm.extend(streaming_percentile(
@@ -380,6 +389,35 @@ def predict(
             print(f"predict: planes [{own_lo}, {own_hi}) of {dim[0]}",
                   file=sys.stderr)
 
+    def owned_blocks(raw):
+        # The volume's Z ranges owned by the slabs, each voxel once, on
+        # the device; the first slab's lies in its upload ``raw``.
+        for j, p in enumerate(plans):
+            lo, hi = p["own"]
+            if j == 0 and hi <= raw.shape[0]:
+                yield raw[lo:hi]
+            else:
+                yield prep.upload(img[lo:hi], cap, device)
+
+    def prep_on_device(in_lo, in_hi):
+        with annotate("predict.upload"):
+            raw = prep.upload(img[in_lo:in_hi], cap, device)
+        with annotate("predict.normalize"):
+            if not norm:
+                blocks = owned_blocks(raw)
+                norm.extend(prep.histogram_percentiles(
+                    prep.clip_histogram(blocks, cap), img.size,
+                    normalization_percentiles, brightness_clip))
+            # Pad with the REAL grid so the reflection anchors at the last
+            # patch's tail segment.
+            pads, fills = stitch.reflect_pad_plan(
+                raw.shape, patch_shape, overlap)
+            slab = prep.normalize_padded(raw, *norm, brightness_clip, pads)
+        with annotate("predict.pad"):
+            stitch.reflect_pad_device(slab, raw.shape, fills)
+        predict.device_prep_slabs += 1
+        return slab
+
     # One-slab-deep pipeline: slab i+1's device work is queued before
     # slab i is copied out, so the device stays fed while the host
     # prepares inputs and copies results.
@@ -387,14 +425,19 @@ def predict(
     prev_plane = None  # predigest: previous slab's last z-aff plane
     for plan in plans:
         in_lo, in_hi = plan["in_range"]
-        with annotate("predict.normalize"):
-            slab = load_slab(in_lo, min(in_hi, dim[0]))
-        # Pad with the REAL grid so the reflection anchors at the last
-        # patch's tail segment.
-        with annotate("predict.pad"):
-            slab, _ = stitch.reflect_pad_to_grid(slab, patch_shape, overlap)
-        with annotate("predict.upload"):
-            slab = stitch.host_to_device(slab, device)
+        in_hi = min(in_hi, dim[0])
+        if device_prep:
+            slab = prep_on_device(in_lo, in_hi)
+        else:
+            with annotate("predict.normalize"):
+                slab = load_slab(in_lo, in_hi)
+            # Pad with the REAL grid so the reflection anchors at the last
+            # patch's tail segment.
+            with annotate("predict.pad"):
+                slab, _ = stitch.reflect_pad_to_grid(
+                    slab, patch_shape, overlap)
+            with annotate("predict.upload"):
+                slab = stitch.host_to_device(slab, device)
         starts = [
             (z_starts[r] - in_lo, y, x)
             for r in plan["rows"]
@@ -447,6 +490,9 @@ def predict(
     if predigest:
         return plan_out, qaff_out
     return out if affinity_mode else out[0]
+
+
+predict.device_prep_slabs = 0
 
 
 # --- Segmentation and skeletonization (host C++ engine) ---

@@ -1,2 +1,2 @@
-"""Device ops: overlap-blend stitching (kernel K1), the pre-digest and the
-training augmentation."""
+"""Device ops: predict's input preparation, overlap-blend stitching (kernel
+K1), the pre-digest and the training augmentation."""

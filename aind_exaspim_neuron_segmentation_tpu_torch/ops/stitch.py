@@ -61,52 +61,76 @@ def separable_weights(img_shape, patch_shape, overlap, trim, windows=None):
     )
 
 
-def reflect_pad_to_grid(img, patch_shape, overlap):
-    """Reflect-pad a 3D host volume so every grid patch is full-size.
+def reflect_pad_plan(shape, patch_shape, overlap):
+    """Pad widths and plane fills that grid-pad a volume of ``shape``.
 
-    Equivalent to clipping each patch to the volume and reflect-padding it
-    at its end: only the LAST patch along an axis overhangs, and it starts
-    at the last grid start, so the padding is a reflection of the clipped
-    tail segment ``img[last_start:]`` about its own end -- including the
-    multi-bounce case where the pad exceeds the tail length. Returns the
-    padded volume and the per-axis pad widths.
+    Only the LAST patch along an axis overhangs, and it starts at the last
+    grid start, so the padding is a reflection of the clipped tail segment
+    ``img[last_start:]`` about its own end -- including the multi-bounce
+    case where the pad exceeds the tail length. Returns ``(pads, fills)``;
+    each fill ``(axis, index, dst, src)``, applied in order, copies the
+    planes ``index`` along ``axis`` of the box ``src`` (whose ``axis``
+    entry is ``slice(None)``) into the box ``dst``. Axis k's reflection
+    covers the already-padded extent of axes < k and only the original
+    extent of axes > k (sequential per-axis padding).
     """
-    ranges = patch_grid_ranges(img.shape, patch_shape, overlap)
+    ranges = patch_grid_ranges(shape, patch_shape, overlap)
     pads = tuple(
         max(r[-1] + p - d, 0)
-        for r, p, d in zip(ranges, patch_shape, img.shape)
+        for r, p, d in zip(ranges, patch_shape, shape)
     )
-    if not any(pads):
-        return img, pads
-    # One preallocation + per-axis pad-plane fills. Axis k's reflection
-    # covers the already-padded extent of axes < k and only the original
-    # extent of axes > k (sequential per-axis padding).
-    shape = tuple(d + pad for d, pad in zip(img.shape, pads))
-    out = np.empty(shape, img.dtype)
-    out[tuple(slice(0, d) for d in img.shape)] = img
-    for axis in range(3):
-        pad = pads[axis]
+    padded = tuple(d + pad for d, pad in zip(shape, pads))
+    fills = []
+    for axis, pad in enumerate(pads):
         if pad == 0:
             continue
-        d = img.shape[axis]
+        d = shape[axis]
         tail_start = ranges[axis][-1]
         # source plane of each pad position: np.pad 'reflect' of the tail
         # segment about its own end (multi-bounce included)
         seg = np.arange(tail_start, d)
-        idx = np.pad(seg, (0, pad), mode="reflect")[d - tail_start:]
-        dst, src = [], []
-        for a in range(3):
-            if a < axis:
-                dst.append(slice(0, shape[a]))
-                src.append(slice(0, shape[a]))
-            elif a == axis:
-                dst.append(slice(d, shape[a]))
-                src.append(idx)
-            else:
-                dst.append(slice(0, img.shape[a]))
-                src.append(slice(0, img.shape[a]))
-        out[tuple(dst)] = out[tuple(src)]
+        index = np.pad(seg, (0, pad), mode="reflect")[d - tail_start:]
+        box = [slice(0, padded[a] if a < axis else shape[a])
+               for a in range(3)]
+        dst = list(box)
+        dst[axis] = slice(d, padded[axis])
+        box[axis] = slice(None)
+        fills.append((axis, index, tuple(dst), tuple(box)))
+    return pads, fills
+
+
+def reflect_pad_to_grid(img, patch_shape, overlap):
+    """Reflect-pad a 3D host volume so every grid patch is full-size.
+
+    Equivalent to clipping each patch to the volume and reflect-padding it
+    at its end (:func:`reflect_pad_plan`). Returns the padded volume and
+    the per-axis pad widths.
+    """
+    pads, fills = reflect_pad_plan(img.shape, patch_shape, overlap)
+    if not fills:
+        return img, pads
+    # One preallocation + per-axis pad-plane fills.
+    shape = tuple(d + pad for d, pad in zip(img.shape, pads))
+    out = np.empty(shape, img.dtype)
+    out[tuple(slice(0, d) for d in img.shape)] = img
+    for axis, index, dst, src in fills:
+        src = src[:axis] + (index,) + src[axis + 1:]
+        out[dst] = out[src]
     return out, pads
+
+
+def reflect_pad_device(buf, shape, fills):
+    """Fill the pad planes of ``buf`` in place, on its device.
+
+    ``buf``: the grid-padded (D', H', W') tensor whose leading ``shape``
+    box holds the volume; ``fills``: :func:`reflect_pad_plan`'s for
+    ``shape``. Plane copies only, so the result equals
+    :func:`reflect_pad_to_grid`'s bit for bit.
+    """
+    for axis, index, dst, src in fills:
+        planes = host_to_device(index, buf.device)
+        buf[dst] = buf[src].index_select(axis, planes)
+    return buf
 
 
 def host_to_device(array, device):

@@ -110,14 +110,15 @@ def rank_plan(n_total, qs):
     return ks, plan
 
 
-def lerp_plan(order_vals, plan):
+def lerp_plan(order_vals, plan, dtype=np.float32):
     """float64 percentiles from fetched order statistics ``order_vals``
     (host floats) and :func:`rank_plan`'s ``plan``, interpolated as
     ``np.percentile`` does (numpy's ``_lerp``: from the upper value when
     the fraction is >= 0.5, the difference of the two values taken in
-    their float32), so the result equals ``np.percentile`` of the same
-    float32 (or integer, below 2**24) data bit for bit."""
-    vals = np.asarray(order_vals, np.float32)
+    their ``dtype``), so the result equals ``np.percentile`` of the same
+    float32 (or integer, below 2**24) data bit for bit; with ``dtype``
+    float64, of float64 (or integer, below 2**53) data."""
+    vals = np.asarray(order_vals, dtype)
     outs = []
     for idx_lo, idx_hi, frac in plan:
         a = float(vals[idx_lo])

@@ -10,7 +10,9 @@ hence ``--noconftest`` there)::
 Elsewhere every case skips. The K1 cases are shared with
 ``tests/test_torch_scatter.py``, which holds the plain version against the
 JAX package on the CPU, and so is :func:`parity_line`, with which every
-parity test prints its figures (``pytest -s``).
+parity test prints its figures (``pytest -s``); predict's two input
+preparations, :func:`host_prep` and :func:`device_prep`, are shared with
+``tests/test_torch_prep.py``.
 """
 
 import json
@@ -20,10 +22,18 @@ import pytest
 import torch
 
 from aind_exaspim_neuron_segmentation_tpu_torch import inference
+from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
+    normalize,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_starts_array,
 )
-from aind_exaspim_neuron_segmentation_tpu_torch.ops import predigest, scatter
+from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
+    predigest,
+    prep,
+    scatter,
+    stitch,
+)
 
 K1_CASES = ("pallas_overlaps", "pallas_untouched", "random_overlapping",
             "grid_rows_aligned")
@@ -82,6 +92,33 @@ def parity_line(what, got=None, want=None, **figures):
         figures = dict(max_abs=float(d.max()), mae=float(d.mean()), **figures)
     print(json.dumps({"parity": what, **figures}))
     return figures
+
+
+def host_prep(img, clip, patch_shape, overlap, percentiles=(1, 99.9)):
+    """``predict``'s host preparation of an in-memory volume: the clip,
+    the percentile normalize, the grid's reflect pad (float32)."""
+    vol = normalize(np.minimum(img, clip), percentiles=percentiles)
+    vol = np.ascontiguousarray(vol, dtype=np.float32)
+    return stitch.reflect_pad_to_grid(vol, patch_shape, overlap)[0]
+
+
+def device_prep(img, clip, patch_shape, overlap, device,
+                percentiles=(1, 99.9)):
+    """The same of a uint8 / uint16 volume on ``device``, one slab, as
+    ``predict`` runs it (:mod:`...ops.prep`); returned on the host."""
+    cap = prep.histogram_cap(img.dtype, clip)
+    raw = prep.upload(img, cap, device)
+    mn, mx = prep.histogram_percentiles(
+        prep.clip_histogram([raw], cap), img.size, percentiles, clip)
+    pads, fills = stitch.reflect_pad_plan(raw.shape, patch_shape, overlap)
+    buf = prep.normalize_padded(raw, mn, mx, clip, pads)
+    return stitch.reflect_pad_device(buf, raw.shape, fills).cpu().numpy()
+
+
+def assert_same_bits(got, want):
+    """Equal shapes and float32 bit patterns."""
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
 
 
 @pytest.fixture
@@ -185,6 +222,28 @@ def test_predict_on_card_matches_cpu(cuda, no_tf32):
     want_plan, want_q = predigest.predigest_slab(torch.from_numpy(got))
     np.testing.assert_array_equal(plan, want_plan.numpy())
     np.testing.assert_array_equal(qaff, want_q.numpy())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("clip", [1000, 300, 300.5])
+def test_device_prep_on_card_equals_host(cuda, clip):
+    """A 256^3 uint16 block prepared on the card (raw upload, histogram
+    percentiles, float64 normalize, reflect pad) holds the host's float32
+    bits; through ``predict`` it counts one slab prepared there."""
+    rng = np.random.default_rng(15)
+    img = rng.integers(0, 120, (256,) * 3, dtype=np.uint16)
+    img[40:200, 60:70, 100:110] += 350
+    img[20:30, 20:30, 20:30] = 60000
+    want = host_prep(img, clip, (96,) * 3, (32,) * 3)
+    got = device_prep(img, clip, (96,) * 3, (32,) * 3, cuda)
+    parity_line(f"device prep 256^3 uint16 clip {clip}, card vs host",
+                got, want)
+    assert_same_bits(got, want)
+    runner = inference.load_model(device=cuda, width_multiplier=0.25)
+    before = inference.predict.device_prep_slabs
+    inference.predict(img[:96, :96, :96], runner, brightness_clip=clip,
+                      verbose=False)
+    assert inference.predict.device_prep_slabs == before + 1
 
 
 @pytest.mark.gpu

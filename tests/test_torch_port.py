@@ -33,6 +33,9 @@ from aind_exaspim_neuron_segmentation_tpu.models.unet3d import (
 from aind_exaspim_neuron_segmentation_tpu.ops import predigest as jpredigest
 from aind_exaspim_neuron_segmentation_tpu.ops import stitch as jstitch
 from aind_exaspim_neuron_segmentation_tpu_torch import inference
+from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
+    patch_grid_ranges,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.models import convert
 from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
     UNet3D,
@@ -216,6 +219,15 @@ def volume():
     return rng.uniform(0, 2000, size=(72, 56, 40)).astype(np.float32)
 
 
+@pytest.fixture(scope="module")
+def volumes(volume):
+    """The float32 volume, and a uint16 one (above the clip in part),
+    which ``predict`` prepares on the device."""
+    rng = np.random.default_rng(1)
+    u16 = rng.integers(0, 2000, size=volume.shape).astype(np.uint16)
+    return {"float32": volume, "uint16": u16}
+
+
 KW = dict(patch_shape=PATCH, overlap=OVERLAP, trim=TRIM, batch_size=4,
           verbose=False)
 
@@ -231,23 +243,61 @@ def test_load_model_cpu_defaults(runners):
     assert folded.module.outc.conv.weight.dtype == torch.bfloat16
 
 
-@pytest.mark.parametrize("blend_mode", ["uniform", "gaussian"])
-def test_predict_matches_jax(runners, volume, blend_mode):
+@pytest.mark.parametrize("blend_mode, dtype", [
+    pytest.param("uniform", "float32", id="uniform"),
+    pytest.param("gaussian", "float32", id="gaussian"),
+    pytest.param("uniform", "uint16", id="uniform-uint16"),
+    pytest.param("gaussian", "uint16", id="gaussian-uint16"),
+])
+def test_predict_matches_jax(runners, volumes, blend_mode, dtype):
+    """float32 input is prepared on the host, uint16 on the device (one
+    slab counted)."""
     jrun, trun = runners
-    want = jinf.predict(volume, jrun, blend_mode=blend_mode, **KW)
-    got = inference.predict(volume, trun, blend_mode=blend_mode, **KW)
-    assert got.shape == want.shape == (3,) + volume.shape
+    vol = volumes[dtype]
+    want = jinf.predict(vol, jrun, blend_mode=blend_mode, **KW)
+    before = inference.predict.device_prep_slabs
+    got = inference.predict(vol, trun, blend_mode=blend_mode, **KW)
+    assert inference.predict.device_prep_slabs == before + (
+        dtype == "uint16")
+    assert got.shape == want.shape == (3,) + vol.shape
     assert got.dtype == np.float32
-    _assert_close(got, want, f"predict {blend_mode} (72,56,40)")
+    _assert_close(got, want, f"predict {blend_mode} {dtype} (72,56,40)")
     assert (got[want == 0] == 0).all()
     assert (got[:, :TRIM] == 0).all() and (got[:, :, :TRIM] == 0).all()
 
 
-def test_predict_slabbed_equals_full(runners, volume):
+class _LazyView:
+    """A lazy handle over an in-memory volume (read by slicing)."""
+
+    def __init__(self, arr):
+        self.arr, self.shape, self.ndim = arr, arr.shape, arr.ndim
+
+    def __getitem__(self, key):
+        return self.arr[key]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "uint16"])
+def test_predict_slabbed_equals_full(runners, volumes, dtype):
+    """Slabs recompute their boundary rows to the full call's numbers;
+    uint16 input counts each slab prepared on the device, the float32
+    volume and a lazy handle none."""
     _, trun = runners
-    full = inference.predict(volume, trun, **KW)
-    slabbed = inference.predict(volume, trun, max_slab_rows=1, **KW)
+    vol = volumes[dtype]
+    n_slabs = len(inference._slab_plan(
+        list(patch_grid_ranges(vol.shape, PATCH, OVERLAP)[0]),
+        PATCH[0], TRIM, vol.shape[0], 1))
+    assert n_slabs > 1
+    per_slab = int(dtype == "uint16")
+    before = inference.predict.device_prep_slabs
+    full = inference.predict(vol, trun, **KW)
+    slabbed = inference.predict(vol, trun, max_slab_rows=1, **KW)
+    assert inference.predict.device_prep_slabs == (
+        before + per_slab * (1 + n_slabs))
     np.testing.assert_allclose(slabbed, full, atol=1e-6)
+    before = inference.predict.device_prep_slabs
+    lazy = inference.predict(_LazyView(vol), trun, max_slab_rows=1, **KW)
+    assert inference.predict.device_prep_slabs == before
+    np.testing.assert_allclose(lazy, full, atol=2e-6)
 
 
 @pytest.mark.parametrize("rows", [None, 1])

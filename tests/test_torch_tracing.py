@@ -78,12 +78,17 @@ def test_predict_spans_once_per_slab_in_order(runner, vol, tmp_path, lazy,
         assert [s[2] for s in spans].count(name) == slabs, name
     assert all(call[0] <= s <= e <= call[1] for s, e, _ in spans)
     by_name = {n: [s for s in spans if s[2] == n] for n in PREDICT_SPANS}
+    # the in-memory uint16 volume is prepared on the device: its raw
+    # upload comes first
+    order = PREDICT_SPANS if lazy else (
+        "predict.upload", "predict.normalize", "predict.pad",
+        "predict.copy_out")
     for k in range(slabs):
-        slab = [by_name[n][k] for n in PREDICT_SPANS]
+        slab = [by_name[n][k] for n in order]
         # each stage ends before the next of the slab begins
         assert all(a[1] <= b[0] for a, b in zip(slab, slab[1:])), slab
         if k:  # slab k is prepared before slab k - 1 is copied out
-            assert by_name["predict.upload"][k][1] <= \
+            assert by_name[order[2]][k][1] <= \
                 by_name["predict.copy_out"][k - 1][0]
 
 
