@@ -26,45 +26,12 @@ from benchmark import harness  # noqa: E402
 
 def control_readings(cell, seed, device, overrides=None):
     """``{kind: [(name, value), ...]}`` of the control, and of a training
-    cell's planted faults, on one seed."""
-    spec = harness.load_spec()
-    entry = next(w for w in spec["workloads"] if w["name"] == cell)
-    overrides = overrides or {}
-    cfg = harness.merged(
-        harness.load_json("configs", entry["config"] + ".json"),
-        overrides.get("config"))
-    traffic = harness.merged(
-        harness.load_json("traffic", entry["traffic"] + ".json"),
-        overrides.get("traffic"))
-    if "predict" in cfg:
-        from benchmark.drivers import predict_closed_loop as drv
-
-        blocks, params = drv.make_inputs(cfg, traffic, seed, device)
-        want = drv.reference(cfg, blocks[0], params, device)
-        got = drv.reference(cfg, blocks[0], params, device, quant="fp8")
-        return {"control_fp8": drv.gaps(got, want)}
-    from benchmark import inputs, training
-    from benchmark.reference import train as ref_train
-
-    imgs, labs = training.make_volumes(cfg, seed)
-    m = cfg["model"]
-    p0 = {k: v.cpu() for k, v in inputs.conv_weights(
-        seed, device, m["width"], m["out_channels"]).items()
-        if not k.endswith(("running_mean", "running_var"))}
-    batches = training.reference_batches(cfg, imgs, labs, seed)
-    keys = [(seed, 0, s) for s in range(training.CHECKED_STEPS)]
-    ref = ref_train.train_steps(p0, batches, keys, device)
-    out = {}
-    for kind, kw in (("control_fp8", dict(quant="fp8")),
-                     ("fault_half_batch", dict(fault="half_batch")),
-                     ("fault_flip_targets", dict(fault="flip_targets"))):
-        losses, grads, weights, xs = ref_train.train_steps(
-            p0, batches, keys, device, **kw)
-        prog = dict(losses=losses, grads=grads, weights=weights, inputs=xs)
-        leaves = []
-        out[kind] = training.compare(prog, ref, p0, leaves) + [
-            ("worst_leaves", leaves)]
-    return out
+    cell's planted faults, on one seed: the cell's driver's own
+    ``control_readings``."""
+    cfg, traffic = harness.cell_inputs(harness.load_spec(), cell,
+                                       overrides)
+    driver = harness.load_module("drivers", traffic["driver"] + ".py")
+    return driver.control_readings(cfg, traffic, seed, device)
 
 
 def main(argv=None):

@@ -2,17 +2,17 @@
 
 One caller, as a brain is processed block after block: each call starts
 when the last has returned its affinities on the host. The blocks are
-seeded uint16 tube volumes, cycled in order. The model is the configured
-UNet3D, made from the seed (:func:`benchmark.inputs.calibrated_weights`),
-saved as a checkpoint in memory and loaded through the program's
-``load_model`` in the configured dtype, BatchNorm folded.
+seeded uint16 tube volumes, cycled in order. The model is the
+configuration's architecture (``benchmark/models/``): its weights made
+from the seed, and its runner built from them through the program's
+``load_model``.
 
 The check: a sample of the window's calls, drawn from the seed
 (reservoir sampling), is held to the plain reference's float32 affinities
-of the same block: the mean and the largest absolute gap.
+of the same block (the architecture's reference forward): the mean and
+the largest absolute gap.
 """
 
-import io
 import random
 
 import numpy as np
@@ -20,22 +20,6 @@ import torch
 
 from benchmark import harness, inputs
 from benchmark.reference import predict as ref_predict
-
-DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-
-
-def checkpoint(params):
-    """A ``.pth`` in memory of float32 ``params`` under the checkpoint
-    keys, with the BatchNorm counters a checkpoint carries."""
-    sd = {k: v.detach().cpu() for k, v in params.items()}
-    for k in list(sd):
-        if k.endswith(".running_mean"):
-            sd[k[:-len("running_mean")] + "num_batches_tracked"] = \
-                torch.tensor(0)
-    buf = io.BytesIO()
-    torch.save(sd, buf)
-    buf.seek(0)
-    return buf
 
 
 def predict_kwargs(cfg):
@@ -47,25 +31,20 @@ def predict_kwargs(cfg):
                 trim=p["trim"], blend_mode=p["blend"], verbose=False)
 
 
-def make_inputs(cfg, traffic, seed, device):
+def make_inputs(cfg, traffic, seed, device, arch):
     """The block pool and the float32 weights of one seed."""
     t = traffic
     blocks = [inputs.tube_volume(seed, k, t["block"], t["tubes"],
                                  t["radius"], t["noise"], t["bright"])[0]
               for k in range(t["pool"])]
-    m = cfg["model"]
-    params = inputs.calibrated_weights(
-        seed, device, blocks[0], width=m["width"],
-        out_channels=m["out_channels"], clip=cfg["predict"]["clip"],
-        percentiles=tuple(cfg["predict"]["percentiles"]))
-    return blocks, params
+    return blocks, arch.weights(cfg, seed, device, blocks[0])
 
 
-def reference(cfg, block, params, device, quant=None):
+def reference(cfg, block, params, device, arch, quant=None):
     """The plain reference's affinities of ``block``."""
     p = cfg["predict"]
     return ref_predict.predict(
-        block, params, device, patch=(p["patch"],) * 3,
+        block, params, device, arch.forward, patch=(p["patch"],) * 3,
         overlap=(p["overlap"],) * 3, trim=p["trim"], clip=p["clip"],
         percentiles=tuple(p["percentiles"]), quant=quant)
 
@@ -80,6 +59,17 @@ def gaps(got, want):
             ("aff_max_abs", float(diff.max()))]
 
 
+def control_readings(cfg, traffic, seed, device):
+    """``{"control_fp8": gaps}``: the reference with float8 convolutions
+    put in the program's place, against the float32 reference, on the
+    pool's first block."""
+    arch = harness.model_module(cfg)
+    blocks, params = make_inputs(cfg, traffic, seed, device, arch)
+    want = reference(cfg, blocks[0], params, device, arch)
+    got = reference(cfg, blocks[0], params, device, arch, quant="fp8")
+    return {"control_fp8": gaps(got, want)}
+
+
 class Session:
     """The program's runner and the block pool of one run."""
 
@@ -91,14 +81,11 @@ class Session:
         self.ctx, self.cfg, self.traffic = ctx, ctx.cfg, ctx.traffic
         self.predict = inference.predict
         clock = harness.Phases()
+        self.arch = harness.model_module(self.cfg)
         self.blocks, self.params = make_inputs(
-            self.cfg, self.traffic, ctx.seed, ctx.device)
+            self.cfg, self.traffic, ctx.seed, ctx.device, self.arch)
         clock.mark("inputs")
-        m = self.cfg["model"]
-        self.runner = inference.load_model(
-            checkpoint(self.params), affinity_mode=True, device=ctx.device,
-            dtype=DTYPES[m["dtype"]], width_multiplier=m["width"],
-            fold_bn=m["fold_bn"])
+        self.runner = self.arch.runner(self.cfg, self.params, ctx.device)
         clock.mark("load_model")
         self.kw = predict_kwargs(self.cfg)
         self.rng = random.Random(ctx.seed)
@@ -145,7 +132,7 @@ class Session:
         for _, k, out in self.sample:
             if k not in cache:
                 cache[k] = reference(self.cfg, self.blocks[k], self.params,
-                                     self.ctx.device)
+                                     self.ctx.device, self.arch)
             for name, v in gaps(out, cache[k]):
                 worst[name] = max(worst.get(name, 0.0), v)
         self.numbers = sorted(worst.items())

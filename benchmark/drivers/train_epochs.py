@@ -4,7 +4,8 @@ The Trainer's own prefetching sampler feeds every step (one producer
 thread, or ``num_workers`` processes as the configuration says), so the
 sampler's stall at the start of each epoch and its pace against the
 step are in the window. Each timed call is one epoch; the window ends
-with the epoch in flight. Validation is left out of the window.
+with the epoch in flight. Validation is left out of the window. The
+UNet3D alone (:mod:`benchmark.training`).
 """
 
 import torch
@@ -53,6 +54,9 @@ class Session(training.TrainSession):
         out = super().counters()
         out["input_wait_s"] = self.input_wait_s
         return out
+
+
+control_readings = training.control_readings
 
 
 def setup(ctx):

@@ -4,6 +4,7 @@ The pool is the host batches the Trainer's own sampler produced during
 set-up (its warm epochs), cycled in order; the epoch and step indices
 advance, so every step draws fresh augmentation. The sampler is not in
 the window: this is the step-bound regime of a job whose input keeps up.
+The UNet3D alone (:mod:`benchmark.training`).
 """
 
 from benchmark import training
@@ -28,6 +29,9 @@ class Session(training.TrainSession):
         self.trainer.train_batch(xs, ys, epoch, self.k % self.steps_per_epoch)
         self.k += 1
         return float(self.ctx.cfg["train"]["batch_size"])
+
+
+control_readings = training.control_readings
 
 
 def setup(ctx):

@@ -3,7 +3,10 @@
 Everything a cell needs is found by name from ``BENCHMARK.json``:
 
 * the cell's ``config`` -> ``benchmark/configs/<config>.json`` (the
-  model's sizes, the workflow's settings and the limits of its check);
+  model's sizes, the workflow's settings and the limits of its check),
+  whose ``model.architecture`` names ``benchmark/models/<architecture in
+  lower case>.py`` (the seeded weights, the program's runner, the plain
+  reference forward and the analytic counts of that architecture);
 * its ``traffic`` -> ``benchmark/traffic/<traffic>.json`` (the mix's
   parameters), whose ``driver`` names ``benchmark/drivers/<driver>.py``;
 * each metric -> ``benchmark/metrics/<name>.py``, a reader with a
@@ -16,6 +19,9 @@ benchmark's span around each timed call), ``step()`` (one timed call;
 returns the work it finished), ``counters()`` (what the program counted
 in the window), ``free()`` and ``check()`` (the comparison with the plain
 reference, ``[(name, value), ...]``, each held to the config's limit).
+A driver's ``control_readings(cfg, traffic, seed, device)`` gives the same
+numbers for the control (and a training cell's planted faults), for
+``calibrate.py`` and the tests.
 """
 
 import contextlib
@@ -93,6 +99,26 @@ def merged(base, over):
     return out
 
 
+def cell_inputs(spec, cell, overrides=None):
+    """``(config, traffic)`` of ``cell``; ``overrides``
+    (``{"config": {...}, "traffic": {...}}``) replaces settings."""
+    entry = next((w for w in spec["workloads"] if w["name"] == cell), None)
+    if entry is None:
+        raise KeyError(f"no workload {cell!r} in BENCHMARK.json")
+    overrides = overrides or {}
+    cfg = merged(load_json("configs", entry["config"] + ".json"),
+                 overrides.get("config"))
+    traffic = merged(load_json("traffic", entry["traffic"] + ".json"),
+                     overrides.get("traffic"))
+    return cfg, traffic
+
+
+def model_module(cfg):
+    """The module of the configuration's ``model.architecture``."""
+    return load_module("models", cfg["model"]["architecture"].lower()
+                       + ".py")
+
+
 def cell_metrics(spec, cell, kind):
     """The ``end_to_end`` or ``per_layer`` entries the cell reports: those
     that list it, and, without a list, those whose end-to-end metric the
@@ -153,14 +179,7 @@ def run_cell(cell, seed, seconds, trace, *, device="cuda", chips=1,
 
     t0 = time.perf_counter() if process_t0 is None else process_t0
     spec = spec or load_spec()
-    entry = next((w for w in spec["workloads"] if w["name"] == cell), None)
-    if entry is None:
-        raise KeyError(f"no workload {cell!r} in BENCHMARK.json")
-    overrides = overrides or {}
-    cfg = merged(load_json("configs", entry["config"] + ".json"),
-                 overrides.get("config"))
-    traffic = merged(load_json("traffic", entry["traffic"] + ".json"),
-                     overrides.get("traffic"))
+    cfg, traffic = cell_inputs(spec, cell, overrides)
     driver = load_module("drivers", traffic["driver"] + ".py")
     dev = torch.device(device)
     on_card = dev.type == "cuda"

@@ -1,15 +1,12 @@
-"""Inputs and weights made from ``--seed``: the same seed, the same bytes.
+"""Volumes made from ``--seed``: the same seed, the same bytes.
 
 Volumes are made on the host in bulk (the program reads them from host
-memory, as a user's block or training volume arrives); weights are made
-on the run's device by one ``torch.Generator`` in a few large calls. Both
-are handed to the program and to the reference alike.
+memory, as a user's block or training volume arrives) and handed to the
+program and to the reference alike. Weights are the architecture's
+(``benchmark/models/``).
 """
 
 import numpy as np
-import torch
-
-from benchmark.reference import unet3d as ref_unet
 
 
 def tube_labels(shape, n, radius, rng):
@@ -57,64 +54,3 @@ def tube_volume(seed, k, size, tubes, radius, noise, bright):
     img[lab > 0] += np.uint16(bright)
     return img, lab
 
-
-def conv_weights(seed, device, width=1.0, out_channels=3):
-    """Conv weights and biases of the model, uniform in +-1/sqrt(fan_in)
-    (PyTorch's default bound), drawn on ``device`` in one call; BatchNorm
-    at weight 1, bias 0, mean 0, variance 1. float32, by checkpoint key."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    shapes = ref_unet.param_shapes(width, out_channels)
-    convs = [k for k in shapes if k.endswith(".weight")
-             and len(shapes[k]) == 5]
-    sizes = []
-    for k in convs:
-        sizes += [int(np.prod(shapes[k])), shapes[k][0]]
-    flat = torch.rand(sum(sizes), generator=gen, device=device) * 2 - 1
-    parts = iter(torch.split(flat, sizes))
-    p = {}
-    for k in convs:
-        w_shape = shapes[k]
-        bound = float(np.prod(w_shape[1:])) ** -0.5
-        p[k] = next(parts).view(w_shape) * bound
-        p[k[:-len("weight")] + "bias"] = next(parts) * bound
-    for k, s in shapes.items():
-        if k in p:
-            continue
-        fill = 1.0 if k.endswith(("weight", "running_var")) else 0.0
-        p[k] = torch.full(s, fill, device=device)
-    return p
-
-
-@torch.no_grad()
-def calibrated_weights(seed, device, block, width=1.0, out_channels=3,
-                       clip=1000, percentiles=(1, 99.9)):
-    """Inference weights with the statistics a trained checkpoint carries.
-
-    :func:`conv_weights`, BatchNorm affine terms drawn from the seed
-    (weight U(0.8, 1.2), bias 0.1 N(0, 1)), and running statistics from
-    one float32 train-mode forward over the two corner 96^3 patches of the
-    normalized uint16 ``block`` (the batch's mean and unbiased variance),
-    so that activations neither fade nor saturate layer by layer.
-    """
-    p = conv_weights(seed, device, width, out_channels)
-    gen = torch.Generator(device=device).manual_seed(seed + 1)
-    bn_w = [k for k in p if k.endswith(".weight") and p[k].dim() == 1]
-    sizes = [p[k].numel() for k in bn_w]
-    u = torch.split(torch.rand(sum(sizes), generator=gen, device=device),
-                    sizes)
-    n = torch.split(torch.randn(sum(sizes), generator=gen, device=device),
-                    sizes)
-    for k, a, b in zip(bn_w, u, n):
-        p[k] = 0.8 + 0.4 * a
-        p[k[:-len("weight")] + "bias"] = 0.1 * b
-    img = np.minimum(block, clip)
-    mn, mx = np.percentile(img, percentiles)
-    img = np.clip((img - mn) / (mx - mn + 1e-8), 0, 1).astype(np.float32)
-    x = torch.from_numpy(np.stack([img[:96, :96, :96],
-                                   img[-96:, -96:, -96:]])[:, None])
-    saved = ref_unet.tf32_off()
-    try:
-        ref_unet.forward(p, x.to(device), calibrate=True)
-    finally:
-        ref_unet.restore_tf32(saved)
-    return p

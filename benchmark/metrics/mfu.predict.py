@@ -1,12 +1,12 @@
 """Whole-step model FLOP utilization of predict, % of the bf16 peak.
 
-The FLOPs the trimmed output needs (the valid-region decoder's convs) per
-real patch, times the real patches of the traced window's finished
-blocks, over the window, over the card's dense bf16 peak.
+The FLOPs the trimmed output needs per real patch, as the architecture
+counts them (the UNet3D's: the valid-region decoder's convs), times the
+real patches of the traced window's finished blocks, over the window,
+over the card's dense bf16 peak.
 """
 
 from benchmark import readers
-from benchmark.counts import unet3d as counts
 
 
 def read(rec):
@@ -14,6 +14,6 @@ def read(rec):
     t = readers.traced(rec)
     if t is None or rec["peaks"] is None:
         return None
-    flops = counts.forward_flops(readers.predict_layers(rec)) * \
+    flops = readers.model(rec).forward_flops(rec["cfg"], "predict") * \
         readers.real_patches(rec) * rec["counters"]["blocks"]
     return 100.0 * flops / t.window_s / rec["peaks"]["bf16_flops_s"]

@@ -1,12 +1,11 @@
 """Whole-step model FLOP utilization of training, % of the bf16 peak.
 
-3 x the full forward's conv FLOPs per patch (the forward, and two for the
-backward), times the patches of the finished steps, over the traced
-window, over the card's dense bf16 peak.
+3 x the full forward's FLOPs per patch (the forward, and two for the
+backward), as the architecture counts them, times the patches of the
+finished steps, over the traced window, over the card's dense bf16 peak.
 """
 
 from benchmark import readers
-from benchmark.counts import unet3d as counts
 
 
 def read(rec):
@@ -14,5 +13,6 @@ def read(rec):
     t = readers.traced(rec)
     if t is None or rec["peaks"] is None:
         return None
-    flops = 3 * counts.forward_flops(readers.train_layers(rec)) * rec["work"]
+    flops = 3 * readers.model(rec).forward_flops(rec["cfg"], "train") * \
+        rec["work"]
     return 100.0 * flops / t.window_s / rec["peaks"]["bf16_flops_s"]

@@ -9,7 +9,7 @@ A reader's ``read(rec)`` gets the run's record: ``setup_s``,
 
 import numpy as np
 
-from benchmark.counts import unet3d as counts
+from benchmark import harness
 
 
 def traced(rec):
@@ -71,15 +71,18 @@ def predict_grid(rec):
     return starts, padded, p["batch_size"]
 
 
+def model(rec):
+    """The module of the run's architecture (``benchmark/models/``)."""
+    return harness.model_module(rec["cfg"])
+
+
 def predict_layers(rec):
-    """The convs of one patch of the predict cell (valid-region decoder
-    at the configured trim)."""
-    p, m = rec["cfg"]["predict"], rec["cfg"]["model"]
-    return counts.conv_layers(p["patch"], p["trim"], m["width"],
-                              m["out_channels"])
+    """The convs of one patch of the predict cell, as its architecture
+    counts them (the UNet3D's: the valid-region decoder at the configured
+    trim)."""
+    return model(rec).conv_layers(rec["cfg"], "predict")
 
 
 def train_layers(rec):
     """The convs of one patch of a training cell (the full forward)."""
-    t, m = rec["cfg"]["train"], rec["cfg"]["model"]
-    return counts.conv_layers(t["patch"], 0, m["width"], m["out_channels"])
+    return model(rec).conv_layers(rec["cfg"], "train")

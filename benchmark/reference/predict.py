@@ -4,10 +4,11 @@ The published ``inference.predict`` semantics, written out without the
 program: brightness clip, percentile min-max normalization over the whole
 block (``np.percentile``, linear interpolation, float64 arithmetic), the
 patch grid (starts ``range(0, dim - patch + stride, stride)``, the last
-patch reflect-padded at its end), the full forward of each patch with
-BatchNorm unfolded, sigmoid, a ``trim``-voxel border dropped, every
-patch's core added into an accumulator in grid order, and the sum divided
-by the number of cores that cover each voxel (0 where none does).
+patch reflect-padded at its end), the architecture's plain float32
+forward of each patch (the caller hands it in), sigmoid, a
+``trim``-voxel border dropped, every patch's core added into an
+accumulator in grid order, and the sum divided by the number of cores
+that cover each voxel (0 where none does).
 """
 
 import itertools
@@ -15,7 +16,7 @@ import itertools
 import numpy as np
 import torch
 
-from benchmark.reference import unet3d as ref_unet
+from benchmark.reference.precision import restore_tf32, tf32_off
 
 
 def normalize(block, clip, percentiles):
@@ -44,12 +45,14 @@ def cut_patch(img, start, patch):
 
 
 @torch.no_grad()
-def predict(block, params, device, *, patch, overlap, trim, clip,
+def predict(block, params, device, forward, *, patch, overlap, trim, clip,
             percentiles, batch=8, quant=None):
     """(3, D, H, W) float32 affinities of a uint16 block, on the host.
 
-    ``params`` are the unfolded float32 weights by checkpoint key;
-    ``batch`` patches run at a time (it changes no number).
+    ``forward(params, x, quant=quant)`` gives the logits of a float32
+    (N, 1, D, H, W) batch of patches from ``params``, the float32 weights
+    by checkpoint key; ``batch`` patches run at a time (it changes no
+    number).
     """
     img = normalize(block, clip, percentiles)
     starts = grid(block.shape, patch, overlap)
@@ -57,14 +60,13 @@ def predict(block, params, device, *, patch, overlap, trim, clip,
     acc = torch.zeros((3,) + block.shape, dtype=torch.float32,
                       device=device)
     hits = torch.zeros(block.shape, dtype=torch.float32, device=device)
-    saved = ref_unet.tf32_off()
+    saved = tf32_off()
     try:
         for lo in range(0, len(starts), batch):
             part = starts[lo:lo + batch]
             x = torch.from_numpy(np.stack(
                 [cut_patch(img, s, patch) for s in part])[:, None])
-            prob = torch.sigmoid(ref_unet.forward(params, x.to(device),
-                                                  quant=quant))
+            prob = torch.sigmoid(forward(params, x.to(device), quant=quant))
             for (z, y, x0), pr in zip(part, prob):
                 sl = tuple(slice(s + trim, min(s + trim + c, d))
                            for s, c, d in zip((z, y, x0), core, block.shape))
@@ -73,6 +75,6 @@ def predict(block, params, device, *, patch, overlap, trim, clip,
                 acc[(slice(None),) + sl] += keep
                 hits[sl] += 1
     finally:
-        ref_unet.restore_tf32(saved)
+        restore_tf32(saved)
     out = torch.where(hits > 0, acc / torch.clamp(hits, min=1), 0.0)
     return out.cpu().numpy()

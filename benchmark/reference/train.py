@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from benchmark.reference import unet3d as ref_unet
+from benchmark.reference.precision import restore_tf32, tf32_off
 
 FOREGROUND_MIN_VOXELS = 10**3
 
@@ -192,7 +193,7 @@ def train_steps(params0, batches, keys, device, quant=None, fault=None):
     m = {k: torch.zeros_like(v) for k, v in learn.items()}
     v2 = {k: torch.zeros_like(v) for k, v in learn.items()}
     losses, inputs, first = [], [], None
-    saved = ref_unet.tf32_off()
+    saved = tf32_off()
     try:
         for t, ((raw, scale, lab), key) in enumerate(zip(batches, keys), 1):
             x = torch.from_numpy(raw.astype(np.float32)).to(device)
@@ -222,5 +223,5 @@ def train_steps(params0, batches, keys, device, quant=None, fault=None):
                     adamw_(w, g, m[k], v2[k], t)
             del logits, loss, grads
     finally:
-        ref_unet.restore_tf32(saved)
+        restore_tf32(saved)
     return losses, first, {k: v.cpu() for k, v in learn.items()}, inputs

@@ -123,18 +123,3 @@ def forward(p, x, train=False, quant=None, calibrate=False):
         y = _double(p, name, torch.cat([skip, up], dim=1), mode, quant)
     return _conv(y, p["outc.conv.weight"], p["outc.conv.bias"], 0, quant)
 
-
-def tf32_off():
-    """Turn TF32 off in cuDNN and cuBLAS, so float32 rounds as float32;
-    returns the previous flags for :func:`restore_tf32`."""
-    saved = (torch.backends.cudnn.allow_tf32,
-             torch.backends.cuda.matmul.allow_tf32)
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    return saved
-
-
-def restore_tf32(saved):
-    """Put back the flags :func:`tf32_off` returned."""
-    (torch.backends.cudnn.allow_tf32,
-     torch.backends.cuda.matmul.allow_tf32) = saved

@@ -1,10 +1,14 @@
 """The check that decides ``correct``: a sound run passes; the run with
 its timed path broken underneath, and the lower-precision control, fail.
 
-Runs the harness on the CPU at small sizes (width 0.25, 32^3 patches)
-past its look for a card, under each cell's configured limits.
+Runs the harness on the CPU past its look for a card, under each cell's
+configured limits, at the small sizes of ``cpu/<cell>.json`` (the
+settings that replace the cell's, as ``run_cell``'s ``overrides``).
+Every cell of ``BENCHMARK.json`` has such a file; its sound run and its
+control are tested from it alone.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -17,20 +21,8 @@ from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
 from benchmark import calibrate, harness
 
 SEED = 2**31 + 11
-PREDICT = {
-    "config": {"model": {"width": 0.25, "dtype": "float32"},
-               "predict": {"patch": 32, "overlap": 16, "trim": 4,
-                           "batch_size": 4}},
-    "traffic": {"block": 64, "pool": 2, "tubes": 3, "radius": 2},
-}
-TRAIN = {
-    "config": {"model": {"width": 0.25},
-               "train": {"patch": 32, "batch_size": 4},
-               "train_data": {"volumes": 4, "size": 64, "tubes": 3,
-                              "radius": 3}},
-    "traffic": {"pool_batches": 4},
-}
-
+CPU_SIZES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "cpu")
+CELLS = [w["name"] for w in harness.load_spec()["workloads"]]
 
 # a cell the driver, traffic mix and readers are ready for, left out of
 # BENCHMARK.json for its spread on the card's host (PERF.md)
@@ -38,14 +30,40 @@ PENDING = {"name": "train_sampled_b16", "config": "unet3d_affinity_train",
            "traffic": "sampled_epochs_b16", "chips": 1}
 
 
-def _run(cell, overrides):
+def cpu_sizes(cell):
+    """The settings that shrink ``cell`` to a CPU test's size."""
+    with open(os.path.join(CPU_SIZES, cell + ".json")) as f:
+        return json.load(f)
+
+
+def _spec():
     spec = harness.load_spec()
     spec["workloads"].append(PENDING)
+    return spec
+
+
+def _run(cell):
+    spec = _spec()
     result, lines = harness.run_cell(cell, SEED, 0.5, 0, device="cpu",
-                                     overrides=overrides, quiet=True,
+                                     overrides=cpu_sizes(cell), quiet=True,
                                      spec=spec)
     assert len(lines) == len(result["checks"])
     return result
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_every_cell_has_cpu_sizes(cell):
+    sizes = cpu_sizes(cell)
+    assert set(sizes) <= {"config", "traffic"} and sizes
+
+
+@pytest.mark.parametrize("cell", CELLS + [PENDING["name"]])
+def test_sound_run_is_correct(cell):
+    result = _run(cell)
+    assert result["correct"] is True, result["checks"]
+    # the line holds the cell's end-to-end metrics, and no other
+    assert set(result["metrics"]) == {
+        m["name"] for m in harness.cell_metrics(_spec(), cell, "end_to_end")}
 
 
 def _same_state(*args, **kwargs):
@@ -68,7 +86,7 @@ def _altered_answer(inner):
     return forward_batch
 
 
-@pytest.mark.parametrize("fault", [None, "same_state", "half_batch",
+@pytest.mark.parametrize("fault", ["same_state", "half_batch",
                                    "altered_answer"])
 def test_predict_check(monkeypatch, fault):
     if fault == "same_state":
@@ -79,8 +97,8 @@ def test_predict_check(monkeypatch, fault):
     elif fault == "altered_answer":
         monkeypatch.setattr(stitch, "forward_batch",
                             _altered_answer(stitch.forward_batch))
-    result = _run("predict_ram_256", PREDICT)
-    assert result["correct"] is (fault is None), result["checks"]
+    result = _run("predict_ram_256")
+    assert result["correct"] is False, result["checks"]
 
 
 def _loss_of_half(inner):
@@ -98,14 +116,11 @@ def _flipped_targets(inner):
     return targets
 
 
-@pytest.mark.parametrize("cell,fault", [
-    ("train_sampled_b16", None), ("train_pool_b16", None),
-    ("train_pool_b16", "same_state"), ("train_pool_b16", "half_batch"),
-    ("train_pool_b16", "altered_answer")])
-def test_train_check(monkeypatch, cell, fault):
-    """Sound runs of the training cell, and of the pending one fed by the
-    Trainer's own sampler, pass; the faults, planted in the train step
-    both share, fail."""
+@pytest.mark.parametrize("fault", ["same_state", "half_batch",
+                                   "altered_answer"])
+def test_train_check(monkeypatch, fault):
+    """The faults, planted in the train step that the training cell and
+    the pending one fed by the Trainer's own sampler share, fail."""
     if fault == "same_state":
         monkeypatch.setattr(torch.optim.AdamW, "step",
                             lambda self, closure=None: None)
@@ -116,19 +131,15 @@ def test_train_check(monkeypatch, cell, fault):
         monkeypatch.setattr(train.Trainer, "_targets_from_labels",
                             _flipped_targets(
                                 train.Trainer._targets_from_labels))
-    result = _run(cell, TRAIN)
-    assert result["correct"] is (fault is None), result["checks"]
+    result = _run("train_pool_b16")
+    assert result["correct"] is False, result["checks"]
 
 
-@pytest.mark.parametrize("cell,overrides", [("predict_ram_256", PREDICT),
-                                            ("train_pool_b16", TRAIN)])
-def test_control_fails_a_limit(cell, overrides):
-    entry = next(w for w in harness.load_spec()["workloads"]
-                 if w["name"] == cell)
-    limits = harness.load_json("configs", entry["config"] + ".json")[
-        "limits"]
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_fails_a_limit(cell):
+    limits = harness.cell_inputs(harness.load_spec(), cell)[0]["limits"]
     readings = calibrate.control_readings(cell, 5, torch.device("cpu"),
-                                          overrides)
+                                          cpu_sizes(cell))
     for kind, numbers in readings.items():
         failed = [k for k, v in numbers if k in limits and v > limits[k]]
         assert failed, (kind, numbers)

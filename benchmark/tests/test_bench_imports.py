@@ -15,10 +15,10 @@ import json, os, sys
 sys.path.insert(0, {root!r})
 from benchmark import harness, training, calibrate
 from benchmark.drivers import predict_closed_loop, train_epochs, train_pool
-from benchmark.reference import predict, train, unet3d
+from benchmark.reference import precision, predict, train, unet3d
 import aind_exaspim_neuron_segmentation_tpu_torch.inference
 import aind_exaspim_neuron_segmentation_tpu_torch.machine_learning.train
-for part in ("metrics", "drivers"):
+for part in ("metrics", "drivers", "models"):
     for f in sorted(os.listdir(os.path.join(harness.HERE, part))):
         if f.endswith(".py") and f != "__init__.py":
             harness.load_module(part, f)

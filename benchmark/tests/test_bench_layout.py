@@ -98,13 +98,31 @@ def test_cell_pieces_are_found_by_name(cell):
     assert cfg["limits"]
 
 
-def test_config_files_hold_what_is_run():
-    for c in SPEC["configs"]:
-        with open(os.path.join(harness.ROOT, c["file"])) as f:
-            cfg = json.load(f)
-        assert cfg["name"] == c["name"]
-        assert cfg["model"]["channels"] == [32, 64, 128, 256, 512]
-        assert cfg["model"]["width"] == 1.0
+@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
+def test_config_files_hold_what_is_run(entry):
+    with open(os.path.join(harness.ROOT, entry["file"])) as f:
+        cfg = json.load(f)
+    assert cfg["name"] == entry["name"]
+    assert entry["file"] == f"benchmark/configs/{entry['name']}.json"
+    # the architecture's published widths, none of them cut
+    published = harness.model_module(cfg).PUBLISHED
+    assert {k: cfg["model"][k] for k in published} == published
+
+
+ARCH_API = ("PUBLISHED", "weights", "runner", "forward", "conv_layers",
+            "forward_flops")
+
+
+@pytest.mark.parametrize("entry", SPEC["configs"], ids=lambda c: c["name"])
+def test_architecture_module_is_found_by_name(entry):
+    cfg = harness.load_json("configs", entry["name"] + ".json")
+    arch = harness.model_module(cfg)
+    for name in ARCH_API:
+        assert hasattr(arch, name), name
+    # the reference forward is plain: it lives under benchmark/reference/,
+    # which imports nothing of the port (test_bench_imports)
+    assert arch.forward.__module__.startswith("benchmark.reference."), \
+        arch.forward.__module__
 
 
 def test_layer_names_are_one_per_layer():

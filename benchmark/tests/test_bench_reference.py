@@ -14,7 +14,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import (
 from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import UNet3D
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import augment_device
 from benchmark import inputs, training
-from benchmark.drivers import predict_closed_loop
+from benchmark.models import unet3d as arch
 from benchmark.reference import predict as ref_predict
 from benchmark.reference import train as ref_train
 from benchmark.reference import unet3d as ref_unet
@@ -27,8 +27,8 @@ def block():
 
 @pytest.fixture(scope="module")
 def params(block):
-    return inputs.calibrated_weights(7, torch.device("cpu"), block,
-                                     width=WIDTH)
+    return arch.calibrated_weights(7, torch.device("cpu"), block,
+                                   width=WIDTH)
 
 def _port_model(params, train):
     model = UNet3D(output_channels=3, width_multiplier=WIDTH)
@@ -63,12 +63,13 @@ def test_predict_matches_the_port(block, params):
     kw = dict(patch=(32,) * 3, overlap=(16,) * 3, trim=4, clip=1000,
               percentiles=(1, 99.9))
     runner = inference.load_model(
-        predict_closed_loop.checkpoint(params), device="cpu",
+        arch.checkpoint(params), device="cpu",
         width_multiplier=WIDTH, fold_bn=False)
     want = inference.predict(block, runner, patch_shape=kw["patch"],
                              overlap=kw["overlap"], trim=4, batch_size=4,
                              verbose=False)
-    got = ref_predict.predict(block, params, torch.device("cpu"), **kw)
+    got = ref_predict.predict(block, params, torch.device("cpu"),
+                              arch.forward, **kw)
     assert got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6)
     np.testing.assert_array_equal(got == 0, want == 0)

@@ -1,4 +1,9 @@
-"""Training cells' shared set-up and check.
+"""Training cells' shared set-up and check, for the UNet3D alone.
+
+The training drivers, this module and :mod:`benchmark.reference.train`
+build, step and check the UNet3D directly (``benchmark/models/unet3d.py``,
+``benchmark/reference/unet3d.py``); a configuration of another
+architecture is refused.
 
 Set-up builds one ``Trainer`` and one ``TrainDataset`` over seeded tube
 volumes, loads weights made from the seed on the device, and drives the
@@ -34,10 +39,19 @@ import numpy as np
 import torch
 
 from benchmark import harness, inputs
+from benchmark.models import unet3d as model
 from benchmark.reference import train as ref_train
 
 CHECKED_STEPS = 3
 BETA1 = 0.9
+
+
+def unet3d_only(cfg):
+    """Refuse a configuration of another architecture than the UNet3D."""
+    arch = cfg["model"]["architecture"]
+    if arch != "UNet3D":
+        raise ValueError(f"the training cells run the UNet3D alone, not "
+                         f"{arch!r}")
 
 
 def host_copy(t):
@@ -215,6 +229,7 @@ class TrainSession:
         )
 
         self.ctx, cfg = ctx, ctx.cfg
+        unet3d_only(cfg)
         t, m = cfg["train"], cfg["model"]
         clock = harness.Phases()
         self.imgs, self.labs = make_volumes(cfg, ctx.seed)
@@ -231,14 +246,10 @@ class TrainSession:
             use_amp=t["amp"], width_multiplier=m["width"], seed=ctx.seed,
             num_workers=t["num_workers"], device=ctx.device)
         clock.mark("trainer")
-        self.params0 = inputs.conv_weights(ctx.seed, ctx.device, m["width"],
-                                           m["out_channels"])
-        sd = dict(self.params0)
-        for k in list(sd):
-            if k.endswith(".running_mean"):
-                sd[k[:-len("running_mean")] + "num_batches_tracked"] = \
-                    torch.tensor(0)
-        self.trainer.model.load_state_dict(sd, strict=True)
+        self.params0 = model.conv_weights(ctx.seed, ctx.device, m["width"],
+                                          m["out_channels"])
+        self.trainer.model.load_state_dict(
+            model.checkpoint_state(self.params0), strict=True)
         self.params0 = {k: host_copy(v) for k, v in
                         self.trainer.model.named_parameters()}
         clock.mark("weights")
@@ -289,3 +300,30 @@ class TrainSession:
         self.numbers = numbers + compare(prog, ref, self.params0,
                                          self.worst_leaves)
         return self.numbers
+
+
+def control_readings(cfg, traffic, seed, device):
+    """``{kind: [(name, value), ...]}`` of the control (the reference with
+    float8 convolutions) and of the planted faults (half of the batch left
+    out, the first example's targets inverted), each taken through the
+    reference's three steps against the float32 reference's."""
+    unet3d_only(cfg)
+    imgs, labs = make_volumes(cfg, seed)
+    m = cfg["model"]
+    p0 = {k: v.cpu() for k, v in model.conv_weights(
+        seed, device, m["width"], m["out_channels"]).items()
+        if not k.endswith(("running_mean", "running_var"))}
+    batches = reference_batches(cfg, imgs, labs, seed)
+    keys = [(seed, 0, s) for s in range(CHECKED_STEPS)]
+    ref = ref_train.train_steps(p0, batches, keys, device)
+    out = {}
+    for kind, kw in (("control_fp8", dict(quant="fp8")),
+                     ("fault_half_batch", dict(fault="half_batch")),
+                     ("fault_flip_targets", dict(fault="flip_targets"))):
+        losses, grads, weights, xs = ref_train.train_steps(
+            p0, batches, keys, device, **kw)
+        prog = dict(losses=losses, grads=grads, weights=weights, inputs=xs)
+        leaves = []
+        out[kind] = compare(prog, ref, p0, leaves) + [
+            ("worst_leaves", leaves)]
+    return out
