@@ -46,9 +46,9 @@ from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
     ZarrAppendWriter,
     write_zarr,
 )
+from aind_exaspim_neuron_segmentation_tpu_torch.models import swin_unetr
 from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
     fold_batchnorm,
-    load_pth,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
     UNet3D,
@@ -64,7 +64,9 @@ from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
 
 
 class ModelRunner:
-    """A UNet3D module bound for inference (eval mode, fixed device)."""
+    """A model bound for inference (eval mode, fixed device): a UNet3D or
+    a Swin UNETR, either taking ``valid_trim=`` and exposing
+    ``output_channels``."""
 
     def __init__(self, module):
         self.module = module.eval()
@@ -106,10 +108,24 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
     ``fold_bn`` folds eval-mode BatchNorm into the conv weights
     (:func:`~.models.convert.fold_batchnorm`); default: on for bfloat16,
     off for float32.
+
+    A checkpoint of MONAI's ``SwinUNETR`` (its
+    ``swinViT.patch_embed.proj.weight`` key) builds a
+    :class:`~.models.swin_unetr.SwinUNETR` instead, every width read from
+    the checkpoint's shapes (``trilinear`` and ``fold_bn`` do not apply:
+    it has neither upsampling nor BatchNorm); its output channels must be
+    the ones ``affinity_mode`` asks for, and ``width_multiplier`` must be
+    1.
     """
     device = resolve_device(device)
     if dtype is None:
         dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    state_dict = None
+    if path is not None:
+        state_dict = torch.load(path, map_location="cpu", weights_only=True)
+        if swin_unetr.is_swin_unetr_state_dict(state_dict):
+            return _load_swin_unetr(state_dict, affinity_mode, device,
+                                    dtype, width_multiplier)
     if fold_bn is None:
         fold_bn = dtype == torch.bfloat16
     kw = dict(
@@ -117,14 +133,32 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
         width_multiplier=width_multiplier,
     )
     module = UNet3D(**kw)
-    if path is not None:
-        load_pth(path, module)
+    if state_dict is not None:
+        module.load_state_dict(state_dict, strict=True)
     else:
         init_weights(module, torch.Generator().manual_seed(0))
     if fold_bn:
         folded = fold_batchnorm(module.state_dict(), trilinear=trilinear)
         module = UNet3D(fused_bn=True, **kw)
         module.load_state_dict(folded, strict=True)
+    return ModelRunner(module.to(device=device, dtype=dtype))
+
+
+def _load_swin_unetr(state_dict, affinity_mode, device, dtype,
+                     width_multiplier):
+    """The Swin UNETR runner of a MONAI-keyed state dict (strict)."""
+    if width_multiplier != 1:
+        raise ValueError(
+            f"width_multiplier={width_multiplier}: a SwinUNETR checkpoint "
+            "gives its own widths; pass 1")
+    widths = swin_unetr.widths_from_state_dict(state_dict)
+    want = 3 if affinity_mode else 1
+    if widths["out_channels"] != want:
+        raise ValueError(
+            f"checkpoint has {widths['out_channels']} output channels, "
+            f"affinity_mode={affinity_mode} needs {want}")
+    module = swin_unetr.SwinUNETR(**widths)
+    module.load_state_dict(state_dict, strict=True)
     return ModelRunner(module.to(device=device, dtype=dtype))
 
 

@@ -20,6 +20,24 @@ metric (``benchmark/metrics/``) that reads each:
     the host copy into the result (or the append to the Zarr writers) --
     ``idle_copy_out.predict``;
 
+* ``models.swin_unetr.SwinUNETR``'s forward, once per batch of patches:
+
+  - ``swin.encoder``: the patch embedding through the last patch
+    merging and the stage outputs' layer norms -- none (it holds the two
+    spans below);
+  - ``swin.window``: the zero pad, the cyclic roll, the window partition
+    and its reverse, the roll back and the crop (and each stage's region
+    ids) -- none;
+  - ``swin.attention``: the windowed attention core, from q, k and v to
+    each window's output before ``proj`` (the bias and region mask
+    built, the fused attention) -- ``attn_device_ms.swin`` and
+    ``attn_roofline.swin``;
+  - ``swin.decoder``: the UNETR residual blocks, up blocks and output
+    conv -- none;
+  - the counter ``SwinUNETR.swin_windows``, which the forward increments
+    by the (window, head, patch) triples it attended -- the tests, against
+    ``benchmark/counts/swinunetr.py``;
+
 * ``Trainer.train_batch``, once per step:
 
   - ``train.input``: the upload, the augmentation and the targets --

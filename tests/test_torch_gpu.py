@@ -518,3 +518,42 @@ def test_sync_batchnorm_world_one_on_card_equals_native(cuda, dtype):
     for key, value in figures.items():
         assert value <= (2 ** -7 if key in ("y", "dx") else 1e-4), (key,
                                                                    value)
+
+
+@pytest.mark.gpu
+def test_swin_unetr_bf16_forward_on_card_within_the_cell_limits(cuda):
+    """The Swin UNETR at its published widths (feature size 48, depths
+    2-2-2-2, heads 3-6-12-24, window 7), built by ``load_model`` from a
+    MONAI-keyed checkpoint of seeded weights, bf16 on the card: one batch
+    of 16 normalized 96^3 tube patches, whose affinities' central 80^3
+    (trim 8) lie within the limits of ``swinunetr_affinity_infer`` of the
+    plain float32 reference's (TF32 off)."""
+    from benchmark import harness, inputs
+    from benchmark.models import swinunetr as arch
+    from benchmark.reference.precision import restore_tf32, tf32_off
+
+    cfg = harness.load_json("configs", "swinunetr_affinity_infer.json")
+    params = arch.weights(cfg, 17, cuda, None)
+    runner = arch.runner(cfg, params, cuda)
+    assert runner.module.out.conv.conv.weight.dtype == torch.bfloat16
+    block = inputs.tube_volume(17, 0, 192, 32, 4, 120, 350)[0]
+    img = normalize(np.minimum(block, 1000), percentiles=(1, 99.9))
+    x = torch.from_numpy(np.stack([
+        img[z:z + 96, y:y + 96, w:w + 96]
+        for z in (0, 96) for y in (0, 48, 96) for w in (0, 32, 64, 96)
+    ][:16])[:, None].astype(np.float32)).to(cuda)
+    with torch.inference_mode():
+        got = torch.sigmoid(runner.module(x, valid_trim=8).float())
+    saved = tf32_off()
+    try:
+        with torch.no_grad():
+            want = torch.cat([torch.sigmoid(arch.forward(params, part))
+                              for part in x.split(4)])
+    finally:
+        restore_tf32(saved)
+    want = want[:, :, 8:-8, 8:-8, 8:-8]
+    fig = parity_line("Swin UNETR bf16 on the card vs float32 reference",
+                      got.cpu().numpy(), want.cpu().numpy())
+    limits = cfg["limits"]
+    assert fig["mae"] <= limits["aff_mae"], fig
+    assert fig["max_abs"] <= limits["aff_max_abs"], fig
