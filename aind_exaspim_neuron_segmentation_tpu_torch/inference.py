@@ -21,6 +21,7 @@ Everything runs on ``cuda`` unless the caller passes ``device="cpu"``;
 a CUDA request without a CUDA device raises, it never falls back.
 """
 
+import mmap
 import sys
 import zipfile
 
@@ -212,18 +213,47 @@ def _slab_plan(z_starts, patch_z, trim, dim_z, max_rows, stride=None):
     return plans
 
 
-def _to_host_async(tensors):
+def _chunk_plan(z, batch_size, trim, own):
+    """The owned Z planes that each batch of a slab makes final.
+
+    ``z``: the z-starts of the slab's real patches in the order they are
+    queued (padding starts add exact zeros and are left out); ``own``:
+    the slab's owned ``(lo, hi)``. A patch at ``z`` adds into planes
+    ``[z + trim, z + patch - trim)``, so once the batch of starts ``[i,
+    i + batch_size)`` is queued every owned plane below ``trim`` plus the
+    least z-start still to come is final, and after the last batch all
+    are. Returns ``{i: (lo, hi)}``, in Z order, for each batch after
+    which planes ``[lo, hi)`` became final.
+    """
+    own_lo, own_hi = own
+    later = np.minimum.accumulate(np.asarray(z)[::-1])[::-1]
+    chunks, done = {}, own_lo
+    for i in range(0, len(z), batch_size):
+        nxt = i + batch_size
+        bound = own_hi if nxt >= len(z) else min(later[nxt] + trim, own_hi)
+        if bound > done:
+            chunks[i] = (done, bound)
+            done = bound
+    return chunks
+
+
+def _to_host_async(tensors, stream):
     """Start copying device tensors to the host; returns (copies, event).
 
-    On CUDA the copies are queued on the current stream into pinned
-    memory and ``event`` marks their end; the caller synchronizes on it
-    before reading. On the CPU the tensors are returned as they are.
+    On CUDA the copies are queued into pinned memory on ``stream``, after
+    the work queued so far on the current stream, and ``event`` marks
+    their end; the caller synchronizes on it before reading. On the CPU
+    the tensors are returned as they are.
     """
     if tensors[0].device.type != "cuda":
         return tensors, None
-    copies = tuple(t.to("cpu", non_blocking=True) for t in tensors)
-    event = torch.cuda.Event()
-    event.record()
+    stream.wait_stream(torch.cuda.current_stream(tensors[0].device))
+    for t in tensors:  # not reused by the current stream till copied
+        t.record_stream(stream)
+    with torch.cuda.stream(stream):
+        copies = tuple(t.to("cpu", non_blocking=True) for t in tensors)
+        event = torch.cuda.Event()
+        event.record()
     return copies, event
 
 
@@ -256,6 +286,11 @@ def predict(
     :mod:`.ops.prep`) and on the host for any other input; both give the
     same bits. ``predict.device_prep_slabs`` counts the slabs prepared on
     the device.
+
+    The float result streams to the host in Z chunks: the planes each
+    batch makes final are divided and copied out while the device runs
+    the later batches. ``predict.copy_out_chunks`` counts the chunks (one a
+    patch row when a batch holds one row).
 
     ``img``: (D, H, W) or (1, 1, D, H, W), in memory (numpy, a list, or a
     tensor on any device) or a lazy chunked handle (``io.read`` of a zarr
@@ -388,7 +423,7 @@ def predict(
         )
     z_starts = list(ranges[0])
     plans = _slab_plan(z_starts, patch_shape[0], trim, dim[0], max_slab_rows)
-    writers = None
+    writers = out = None
     if out_path is not None and predigest:
         writers = (ZarrAppendWriter(out_path[0], dim, np.uint8),
                    ZarrAppendWriter(out_path[1], (3,) + dim, np.uint8))
@@ -403,10 +438,20 @@ def predict(
     else:
         out = np.zeros((out_channels,) + dim, dtype=np.float32)
 
-    def fetch(entry):
-        own_lo, own_hi, (copies, event) = entry
+    def fetch(entry, then):
+        lo, hi, (copies, event) = entry
         with annotate("predict.copy_out"):
             if event is not None:
+                if out is not None and then is not None and \
+                        not event.query():
+                    # While the device works, fault in the fresh result's
+                    # pages that the chunk queued next fills: the call's
+                    # last copy, which no device work hides, then faults
+                    # no page.
+                    plane = dim[1] * dim[2]
+                    out.reshape(out_channels, -1)[
+                        :, then[0] * plane: then[1] * plane:
+                        mmap.PAGESIZE // out.itemsize] = 0
                 event.synchronize()
             if writers is not None:
                 blocks = [c.numpy() for c in copies]
@@ -415,13 +460,23 @@ def predict(
                 for writer, block in zip(writers, blocks):
                     writer.append(block)
             elif predigest:
-                plan_out[own_lo:own_hi] = copies[0].numpy()
-                qaff_out[:, own_lo:own_hi] = copies[1].numpy()
-            else:
-                out[:, own_lo:own_hi] = copies[0].numpy()
+                plan_out[lo:hi] = copies[0].numpy()
+                qaff_out[:, lo:hi] = copies[1].numpy()
+            else:  # torch's copy runs on every host thread
+                torch.from_numpy(out)[:, lo:hi].copy_(copies[0])
         if verbose:
-            print(f"predict: planes [{own_lo}, {own_hi}) of {dim[0]}",
+            print(f"predict: planes [{lo}, {hi}) of {dim[0]}",
                   file=sys.stderr)
+
+    pending = []  # copies queued and not yet fetched, in Z order
+
+    def fetch_first(n):
+        # Fetch the ``n`` oldest queued copies, in order; each fetch that
+        # waits faults in the pages of the copy queued after it.
+        for j in range(n):
+            fetch(pending[j],
+                  pending[j + 1][:2] if j + 1 < len(pending) else None)
+        del pending[:n]
 
     def owned_blocks(raw):
         # The volume's Z ranges owned by the slabs, each voxel once, on
@@ -452,12 +507,17 @@ def predict(
         predict.device_prep_slabs += 1
         return slab
 
-    # One-slab-deep pipeline: slab i+1's device work is queued before
-    # slab i is copied out, so the device stays fed while the host
-    # prepares inputs and copies results.
-    pending = None
+    # One-slab-deep pipeline: each batch's newly final planes (a digest:
+    # the slab's) are divided and queued for the host on a second stream,
+    # and a slab's copies are fetched once the next slab's device work
+    # is queued behind them, so the device stays fed while the host
+    # prepares inputs and copies results; the last slab's are fetched in
+    # Z order while its later batches run.
+    copy_stream = torch.cuda.Stream(device) if device.type == "cuda" \
+        else None
     prev_plane = None  # predigest: previous slab's last z-aff plane
     for plan in plans:
+        prev_copies = len(pending)  # the previous slab's
         in_lo, in_hi = plan["in_range"]
         in_hi = min(in_hi, dim[0])
         if device_prep:
@@ -484,7 +544,26 @@ def predict(
         valid = np.concatenate(
             [np.ones(n_real, np.float32), np.zeros(pad_n, np.float32)]
         )
-        acc = stitch.accumulate_predictions(
+        own_lo, own_hi = plan["own"]
+        chunks = _chunk_plan([s[0] + in_lo for s in starts[:n_real]],
+                             batch_size, trim, (own_lo, own_hi))
+        acc = torch.zeros((out_channels,) + tuple(slab.shape),
+                          dtype=torch.float32, device=device)
+
+        def blend(lo, hi):
+            return stitch.divide_by_weights(
+                acc[:, lo - in_lo: hi - in_lo, : dim[1], : dim[2]],
+                wz[lo:hi], wy, wx,
+            )
+
+        def stream_chunk(i, _probs):
+            if i in chunks:
+                lo, hi = chunks[i]
+                pending.append((lo, hi, _to_host_async((blend(lo, hi),),
+                                                       copy_stream)))
+                predict.copy_out_chunks += 1
+
+        stitch.accumulate_predictions(
             runner.module,
             slab,
             np.asarray(starts, dtype=np.int32),
@@ -494,26 +573,21 @@ def predict(
             batch_size=batch_size,
             out_channels=out_channels,
             windows=windows,
+            on_batch=None if predigest else stream_chunk,
+            acc=acc,
         )
-        own_lo, own_hi = plan["own"]
-        blended = stitch.divide_by_weights(
-            acc[:, own_lo - in_lo: own_hi - in_lo, : dim[1], : dim[2]],
-            wz[own_lo:own_hi], wy, wx,
-        )
-        del acc
         if predigest:
+            blended = blend(own_lo, own_hi)
             payload = predigest_slab(
                 blended, prev_plane,
                 first_slab=(own_lo == 0), last_slab=(own_hi == dim[0]),
             )
             prev_plane = blended[0, -1]
-        else:
-            payload = (blended,)
-        copy = _to_host_async(payload)
-        if pending is not None:
-            fetch(pending)
-        pending = (own_lo, own_hi, copy)
-    fetch(pending)
+            pending.append((own_lo, own_hi,
+                            _to_host_async(payload, copy_stream)))
+        del acc
+        fetch_first(prev_copies)
+    fetch_first(len(pending))
 
     if writers is not None:
         for writer in writers:
@@ -527,6 +601,7 @@ def predict(
 
 
 predict.device_prep_slabs = 0
+predict.copy_out_chunks = 0
 
 
 # --- Segmentation and skeletonization (host C++ engine) ---

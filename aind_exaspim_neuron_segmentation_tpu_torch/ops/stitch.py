@@ -177,14 +177,15 @@ def forward_batch(module, volume, starts, valid, *, patch_shape, trim,
 
 def accumulate_predictions(module, volume, starts, valid, *, patch_shape,
                            trim, batch_size, out_channels, windows=None,
-                           on_batch=None):
-    """Blend every patch of ``starts`` into a fresh accumulator.
+                           on_batch=None, acc=None):
+    """Blend every patch of ``starts`` into an accumulator.
 
     ``volume``: (D, H, W) float32 slab on the device, already normalized
     and grid-padded. ``starts``: (N, 3) int32 host array, N a multiple of
     ``batch_size`` (pad with any in-bounds start). ``valid``: (N,) float32
     host array, 0.0 for padding starts. Returns (out_channels, D, H, W)
-    float32 accumulated (unweighted) predictions on the device.
+    float32 accumulated (unweighted) predictions on the device: ``acc``,
+    a zeroed tensor of that shape, if given, else a fresh one.
     ``on_batch(i, probs)``, if given, sees each batch's probabilities
     after they are added (``i``: the index of the batch's first start).
     """
@@ -194,10 +195,11 @@ def accumulate_predictions(module, volume, starts, valid, *, patch_shape,
     device = volume.device
     starts_dev = host_to_device(starts.astype(np.int32), device)
     valid_dev = host_to_device(valid.astype(np.float32), device)
-    acc = torch.zeros(
-        (out_channels,) + tuple(volume.shape), dtype=torch.float32,
-        device=device,
-    )
+    if acc is None:
+        acc = torch.zeros(
+            (out_channels,) + tuple(volume.shape), dtype=torch.float32,
+            device=device,
+        )
     for i in range(0, n, batch_size):
         b_starts = starts_dev[i:i + batch_size]
         probs = forward_batch(

@@ -6,7 +6,8 @@ running it costs a few microseconds, so the spans stay on; under
 the device's kernels and copies. The program's spans, and the benchmark
 metric (``benchmark/metrics/``) that reads each:
 
-* ``inference.predict``, once per Z slab, in order:
+* ``inference.predict``, once per Z slab, in order (the copy-out once per
+  streamed chunk of Z planes):
 
   - ``predict.normalize``: the brightness clip and percentile normalize
     (the whole volume in memory at the first slab; a lazy volume's
@@ -16,9 +17,10 @@ metric (``benchmark/metrics/``) that reads each:
     ``idle_prep.predict``;
   - ``predict.upload``: the pinned copy and the queued host-to-device
     copy -- ``idle_upload.predict``;
-  - ``predict.copy_out``: the wait for the slab's device-to-host copy and
-    the host copy into the result (or the append to the Zarr writers) --
-    ``idle_copy_out.predict``;
+  - ``predict.copy_out``: the wait for a chunk's device-to-host copy (a
+    digest's: its slab's) and the host copy into the result (or the
+    append to the Zarr writers) -- ``idle_copy_out.predict``; the counter
+    ``predict.copy_out_chunks`` counts the float chunks -- the tests;
 
 * ``models.swin_unetr.SwinUNETR``'s forward, once per batch of patches:
 

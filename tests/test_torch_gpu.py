@@ -12,7 +12,8 @@ Elsewhere every case skips. The K1 cases are shared with
 JAX package on the CPU, and so is :func:`parity_line`, with which every
 parity test prints its figures (``pytest -s``); predict's two input
 preparations, :func:`host_prep` and :func:`device_prep`, are shared with
-``tests/test_torch_prep.py``.
+``tests/test_torch_prep.py``, and :func:`slab_at_once`, the reference for
+predict's streamed copy-out, with ``tests/test_torch_copy_out.py``.
 """
 
 import json
@@ -26,6 +27,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
     normalize,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
+    patch_grid_ranges,
     patch_starts_array,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
@@ -113,6 +115,55 @@ def device_prep(img, clip, patch_shape, overlap, device,
     pads, fills = stitch.reflect_pad_plan(raw.shape, patch_shape, overlap)
     buf = prep.normalize_padded(raw, mn, mx, clip, pads)
     return stitch.reflect_pad_device(buf, raw.shape, fills).cpu().numpy()
+
+
+def slab_at_once(img, runner, *, patch_shape, overlap, trim, batch_size,
+                 max_slab_rows=None, blend_mode="uniform",
+                 affinity_mode=True, clip=1000):
+    """``predict``'s float result of a float32 volume composed a slab at a
+    time: each slab's whole accumulator
+    (``stitch.accumulate_predictions``), then one
+    ``stitch.divide_by_weights`` over its owned planes, copied to the
+    host. The slabs and the host preparation are ``predict``'s."""
+    device = runner.device
+    dim = img.shape
+    ranges = patch_grid_ranges(dim, patch_shape, overlap)
+    z_starts = list(ranges[0])
+    vol = np.ascontiguousarray(
+        normalize(np.minimum(img, clip), percentiles=(1, 99.9)), np.float32)
+    host_windows = windows = None
+    if blend_mode == "gaussian":
+        host_windows = tuple(stitch.gaussian_window(p, trim, p / 6.0)
+                             for p in patch_shape)
+        windows = tuple(stitch.host_to_device(w, device)
+                        for w in host_windows)
+    wz, wy, wx = (stitch.host_to_device(w, device)
+                  for w in stitch.separable_weights(
+                      dim, patch_shape, overlap, trim, windows=host_windows))
+    channels = 3 if affinity_mode else 1
+    out = np.zeros((channels,) + dim, np.float32)
+    plans = inference._slab_plan(z_starts, patch_shape[0], trim, dim[0],
+                                 max_slab_rows or len(z_starts))
+    for plan in plans:
+        in_lo, in_hi = plan["in_range"]
+        slab = stitch.reflect_pad_to_grid(
+            vol[in_lo:min(in_hi, dim[0])], patch_shape, overlap)[0]
+        starts = [(z_starts[r] - in_lo, y, x) for r in plan["rows"]
+                  for y in ranges[1] for x in ranges[2]]
+        pad = (-len(starts)) % batch_size
+        valid = np.repeat(np.float32([1, 0]), [len(starts), pad])
+        with torch.inference_mode():
+            acc = stitch.accumulate_predictions(
+                runner.module, stitch.host_to_device(slab, device),
+                np.asarray(starts + starts[:1] * pad, np.int32), valid,
+                patch_shape=tuple(patch_shape), trim=trim,
+                batch_size=batch_size, out_channels=channels,
+                windows=windows)
+            lo, hi = plan["own"]
+            out[:, lo:hi] = stitch.divide_by_weights(
+                acc[:, lo - in_lo: hi - in_lo, : dim[1], : dim[2]],
+                wz[lo:hi], wy, wx).cpu().numpy()
+    return out if affinity_mode else out[0]
 
 
 def assert_same_bits(got, want):
@@ -222,6 +273,26 @@ def test_predict_on_card_matches_cpu(cuda, no_tf32):
     want_plan, want_q = predigest.predigest_slab(torch.from_numpy(got))
     np.testing.assert_array_equal(plan, want_plan.numpy())
     np.testing.assert_array_equal(qaff, want_q.numpy())
+
+
+@pytest.mark.gpu
+def test_streamed_copy_out_on_card_equals_slab_at_once(cuda):
+    """bf16 predict on the card, its copy-out streamed a chunk a patch
+    row (one row a batch: the benchmark's 256^3 grid, and three slabs of
+    a small one), holds the slab-at-once composition's bits on the same
+    card."""
+    runner = inference.load_model(device=cuda, width_multiplier=0.25)
+    rng = np.random.default_rng(18)
+    for shape, patch, overlap, trim, batch, rows, chunks in (
+            ((256,) * 3, 96, 32, 8, 16, None, 4),
+            ((64, 48, 48), 32, 16, 4, 4, 1, 3)):
+        vol = rng.uniform(0, 1500, shape).astype(np.float32)
+        pkw = dict(patch_shape=(patch,) * 3, overlap=(overlap,) * 3,
+                   trim=trim, batch_size=batch, max_slab_rows=rows)
+        before = inference.predict.copy_out_chunks
+        got = inference.predict(vol, runner, verbose=False, **pkw)
+        assert inference.predict.copy_out_chunks == before + chunks
+        assert_same_bits(got, slab_at_once(vol, runner, **pkw))
 
 
 @pytest.mark.gpu

@@ -2,7 +2,8 @@
 readers of them, on the CPU.
 
 ``inference.predict`` marks each Z slab's ``predict.normalize``,
-``predict.pad``, ``predict.upload`` and ``predict.copy_out``;
+``predict.pad`` and ``predict.upload``, and each streamed chunk's
+``predict.copy_out``;
 ``Trainer.train_batch`` each step's ``train.input``, ``train.forward``
 and ``train.backward``; ``StageTimer`` stages are spans of their own
 names. The benchmark's span readers (``benchmark/spans.py`` and the
@@ -21,6 +22,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import write_zarr
 from aind_exaspim_neuron_segmentation_tpu_torch.machine_learning import train
+from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
 from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
     StageTimer,
     annotate,
@@ -56,10 +58,22 @@ def vol():
     return v
 
 
+# the batch (one a patch row) after whose queueing each streamed chunk
+# is fetched, by slab count: one slab of rows [0, 1] streams a chunk a
+# row, both fetched after its last batch; two slabs, rows [0] then
+# [0, 1] (the recomputed row 0 makes no chunk), stream one chunk each,
+# the first slab's fetched after the second slab's last batch
+FETCHED_AFTER = {1: [1, 1], 2: [2, 2]}
+
+
 @pytest.mark.parametrize("lazy", [False, True], ids=["memory", "lazy"])
 @pytest.mark.parametrize("slabs", [1, 2])
 def test_predict_spans_once_per_slab_in_order(runner, vol, tmp_path, lazy,
-                                              slabs):
+                                              slabs, monkeypatch):
+    """The prep spans once a slab, in order; ``predict.copy_out`` once a
+    streamed chunk, each after the next slab's batches (the last slab's:
+    its own) are queued (each batch marked by a span around its K1
+    scatter)."""
     rows = len(patch_grid_ranges(vol.shape, PKW["patch_shape"],
                                  PKW["overlap"])[0])
     assert rows == 2
@@ -67,29 +81,46 @@ def test_predict_spans_once_per_slab_in_order(runner, vol, tmp_path, lazy,
     if lazy:
         write_zarr(str(tmp_path / "v.zarr"), vol, chunks=(8, 8, 8))
         src = io.read(str(tmp_path / "v.zarr"))
+    scatter = stitch.scatter_batch
+
+    def marked_scatter(*args, **kwargs):
+        with annotate("batch.scatter"):
+            return scatter(*args, **kwargs)
+
+    monkeypatch.setattr(stitch, "scatter_batch", marked_scatter)
     kw = dict(PKW, max_slab_rows=rows // slabs)
+    before = inference.predict.copy_out_chunks
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         with annotate("call"):
             got = inference.predict(src, runner, **kw)
+    chunks = inference.predict.copy_out_chunks - before
+    assert chunks == len(FETCHED_AFTER[slabs])
     np.testing.assert_array_equal(got, inference.predict(vol, runner, **kw))
     (call,) = _host_spans(prof, ("call",))
     spans = _host_spans(prof, PREDICT_SPANS)
     for name in PREDICT_SPANS:
-        assert [s[2] for s in spans].count(name) == slabs, name
+        want = chunks if name == "predict.copy_out" else slabs
+        assert [s[2] for s in spans].count(name) == want, name
     assert all(call[0] <= s <= e <= call[1] for s, e, _ in spans)
     by_name = {n: [s for s in spans if s[2] == n] for n in PREDICT_SPANS}
     # the in-memory uint16 volume is prepared on the device: its raw
     # upload comes first
-    order = PREDICT_SPANS if lazy else (
-        "predict.upload", "predict.normalize", "predict.pad",
-        "predict.copy_out")
+    order = PREDICT_SPANS[:3] if lazy else (
+        "predict.upload", "predict.normalize", "predict.pad")
     for k in range(slabs):
         slab = [by_name[n][k] for n in order]
         # each stage ends before the next of the slab begins
         assert all(a[1] <= b[0] for a, b in zip(slab, slab[1:])), slab
-        if k:  # slab k is prepared before slab k - 1 is copied out
+        if k:  # slab k is prepared before slab k - 1's chunk (here
+            # chunk k - 1) is copied out
             assert by_name[order[2]][k][1] <= \
                 by_name["predict.copy_out"][k - 1][0]
+    batches = _host_spans(prof, ("batch.scatter",))
+    assert len(batches) == FETCHED_AFTER[slabs][-1] + 1
+    copies = by_name["predict.copy_out"]
+    assert all(a[1] <= b[0] for a, b in zip(copies, copies[1:]))
+    for copy, after in zip(copies, FETCHED_AFTER[slabs]):
+        assert batches[after][1] <= copy[0]
 
 
 def test_train_batch_spans_once_per_step(tmp_path):
