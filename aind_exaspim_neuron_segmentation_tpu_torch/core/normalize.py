@@ -10,11 +10,17 @@ gets the same percentiles from :func:`streaming_percentile`, an exact
 radix select over Z slabs that never holds the volume. The device path
 (:func:`normalize_device`, :func:`preprocess_device`) takes a tensor on
 any device and gets its percentiles by the same radix select on that
-device (:func:`..parallel.stats.percentile_device`).
+device (:func:`.order_stats.percentile_device`).
 """
 
 import numpy as np
 import torch
+
+from aind_exaspim_neuron_segmentation_tpu_torch.core.order_stats import (
+    _PLAN,
+    percentile_device,
+    rank_plan,
+)
 
 DEFAULT_PERCENTILES = (1, 99.9)
 
@@ -36,10 +42,6 @@ def normalize(img, apply_clip=True, percentiles=DEFAULT_PERCENTILES):
 def normalize_device(img, apply_clip=True, percentiles=DEFAULT_PERCENTILES):
     """Percentile min-max normalize a tensor on its own device, in float32
     (the counterpart of the JAX package's ``normalize_jax``)."""
-    from aind_exaspim_neuron_segmentation_tpu_torch.parallel.stats import (
-        percentile_device,
-    )
-
     img = img.to(torch.float32)
     mn, mx = percentile_device(img, tuple(percentiles))
     img = (img - mn) / (mx - mn + 1e-8)
@@ -80,12 +82,11 @@ def streaming_percentile(volume, percentiles, transform=None,
     """
     d = volume.shape[0]
     n_total = int(np.prod(volume.shape))
-    plan = ((20, 1 << 12), (8, 1 << 12), (0, 1 << 8))
 
     def order_stat(k):
         prefix = np.uint32(0)
         remaining = int(k)
-        for shift, bins in plan:
+        for shift, bins in _PLAN:
             fixed_bits = 32 - (shift + (bins.bit_length() - 1))
             hist = np.zeros(bins, np.int64)
             for lo in range(0, d, chunk_planes):
@@ -106,15 +107,11 @@ def streaming_percentile(volume, percentiles, transform=None,
             remaining -= int(below[b])
         return float(_key_to_float_np(prefix))
 
+    ks, plan = rank_plan(n_total, np.atleast_1d(percentiles))
+    vals = [order_stat(k) for k in ks]
     outs = []
-    for q in np.atleast_1d(percentiles):
-        rank = (n_total - 1) * (float(q) / 100.0)
-        k_lo = int(np.floor(rank))
-        frac = rank - k_lo
-        v_lo = order_stat(k_lo)
-        if frac > 0:
-            v_hi = order_stat(k_lo + 1)
-            outs.append(v_lo + (v_hi - v_lo) * frac)
-        else:
-            outs.append(v_lo)
+    for idx_lo, idx_hi, frac in plan:
+        v_lo = vals[idx_lo]
+        outs.append(v_lo if idx_hi is None
+                    else v_lo + (vals[idx_hi] - v_lo) * frac)
     return np.asarray(outs)

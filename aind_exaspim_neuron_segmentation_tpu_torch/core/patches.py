@@ -31,6 +31,33 @@ def patch_grid_ranges(img_shape, patch_shape, overlap):
     return ranges
 
 
+def slab_plan(z_starts, patch_z, trim, dim_z, max_rows):
+    """Split z-start rows into slabs of <= max_rows owned rows.
+
+    Each slab recomputes the trailing rows of the previous slab whose
+    trimmed output reaches into its owned range -- ``back`` rows, where
+    back = ceil(core / stride) - 1 and core = patch - 2*trim (one row for
+    the default 96/32/8 grid). Only the owned output range ``[own_lo,
+    own_hi)`` is kept; the union of owned ranges covers ``[0, dim_z)``.
+    """
+    plans = []
+    n = len(z_starts)
+    stride = z_starts[1] - z_starts[0] if n > 1 else patch_z
+    core = patch_z - 2 * trim
+    back = max(-(-core // stride) - 1, 0)
+    for i0 in range(0, n, max_rows):
+        i1 = min(i0 + max_rows, n)
+        rows = list(range(max(i0 - back, 0), i1))
+        own_lo = 0 if i0 == 0 else z_starts[i0] + trim
+        own_hi = dim_z if i1 == n else z_starts[i1] + trim
+        in_lo = z_starts[rows[0]]
+        in_hi = z_starts[rows[-1]] + patch_z
+        plans.append(
+            dict(rows=rows, own=(own_lo, own_hi), in_range=(in_lo, in_hi))
+        )
+    return plans
+
+
 def count_patches(img_shape, patch_shape, overlap):
     """Number of patches in the sliding-window grid.
 

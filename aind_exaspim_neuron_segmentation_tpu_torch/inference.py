@@ -34,18 +34,17 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.device import (  # noqa: F4
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
     DEFAULT_PERCENTILES,
-    normalize,
-    streaming_percentile,
+    normalize,  # noqa: F401  (re-export)
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     count_patches,  # noqa: F401  (re-export)
     generate_patch_starts,  # noqa: F401  (re-export)
     patch_grid_ranges,
+    slab_plan,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.io import read
 from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
     ZarrAppendWriter,
-    write_zarr,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models import swin_unetr
 from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
@@ -171,48 +170,6 @@ def to_tensor(arr, device=None):
     return t.to(resolve_device(device))
 
 
-class _Volume5DView:
-    """3D view over a lazy (1, 1, D, H, W) handle (AIND zarr layout)."""
-
-    def __init__(self, handle):
-        self.handle = handle
-        self.shape = tuple(handle.shape[2:])
-        self.ndim = 3
-
-    def __getitem__(self, key):
-        if not isinstance(key, tuple):
-            key = (key,)
-        return self.handle[(0, 0) + key]
-
-
-def _slab_plan(z_starts, patch_z, trim, dim_z, max_rows, stride=None):
-    """Split z-start rows into slabs of <= max_rows owned rows.
-
-    Each slab recomputes the trailing rows of the previous slab whose
-    trimmed output reaches into its owned range -- ``back`` rows, where
-    back = ceil(core / stride) - 1 and core = patch - 2*trim (one row for
-    the default 96/32/8 grid). Only the owned output range ``[own_lo,
-    own_hi)`` is kept; the union of owned ranges covers ``[0, dim_z)``.
-    """
-    plans = []
-    n = len(z_starts)
-    if stride is None:
-        stride = z_starts[1] - z_starts[0] if n > 1 else patch_z
-    core = patch_z - 2 * trim
-    back = max(-(-core // stride) - 1, 0) if stride > 0 else 0
-    for i0 in range(0, n, max_rows):
-        i1 = min(i0 + max_rows, n)
-        rows = list(range(max(i0 - back, 0), i1))
-        own_lo = 0 if i0 == 0 else z_starts[i0] + trim
-        own_hi = dim_z if i1 == n else z_starts[i1] + trim
-        in_lo = z_starts[rows[0]]
-        in_hi = z_starts[rows[-1]] + patch_z
-        plans.append(
-            dict(rows=rows, own=(own_lo, own_hi), in_range=(in_lo, in_hi))
-        )
-    return plans
-
-
 def _chunk_plan(z, batch_size, trim, own):
     """The owned Z planes that each batch of a slab makes final.
 
@@ -280,12 +237,12 @@ def predict(
     Brightness clip, full-volume percentile normalization, the
     overlapping patch grid, sigmoid, ``trim``-voxel border trim, and the
     hit-count blend (zero where never covered), as in the JAX package.
-    The clip, the normalization and the grid's reflect pad run on the
+    :mod:`.ops.prep` clips, normalizes and reflect-pads each slab: on the
     device for an in-memory uint8 or uint16 volume (the raw integers are
-    uploaded, the percentiles come from an exact histogram:
-    :mod:`.ops.prep`) and on the host for any other input; both give the
-    same bits. ``predict.device_prep_slabs`` counts the slabs prepared on
-    the device.
+    uploaded, the percentiles come from an exact histogram) and on the
+    host for any other input; both give the same bits.
+    ``predict.device_prep_slabs`` counts the slabs prepared on the
+    device.
 
     The float result streams to the host in Z chunks: the planes each
     batch makes final are divided and copied out while the device runs
@@ -319,92 +276,19 @@ def predict(
     stream into two stores and the lazy pair is returned, which
     :func:`affinities_to_segmentation` takes as it is.
     """
-    lazy = not isinstance(img, (np.ndarray, torch.Tensor, list, tuple))
-    if isinstance(img, torch.Tensor):
-        img = img.detach().cpu().numpy()
-    elif not lazy:
-        img = np.asarray(img)
-    if img.ndim == 5:
-        img = _Volume5DView(img) if lazy else img[0, 0]
-    if img.ndim != 3:
-        raise ValueError(f"expected 3D or 5D input, got shape {img.shape}")
-
-    out_channels = 3 if affinity_mode else 1
+    img = prep.as_volume(img)
     runner = model if isinstance(model, ModelRunner) else ModelRunner(model)
-    if runner.output_channels != out_channels:
-        raise ValueError(
-            f"model has {runner.output_channels} output channels, "
-            f"affinity_mode={affinity_mode} needs {out_channels}"
-        )
-    if predigest and not affinity_mode:
-        raise ValueError("predigest requires affinity_mode=True")
-    if predigest and out_path is not None and (
-        not isinstance(out_path, (tuple, list)) or len(out_path) != 2
-    ):
-        raise ValueError(
-            "predigest streams TWO stores; pass "
-            "out_path=(plan_path, qaff_path)"
-        )
-    if blend_mode not in ("uniform", "gaussian"):
-        raise ValueError(f"unknown blend_mode {blend_mode!r}")
-
+    out_channels = stitch.check_call(runner, affinity_mode, predigest,
+                                     out_path, blend_mode)
     dim = tuple(img.shape)
     ranges = patch_grid_ranges(dim, patch_shape, overlap)
     if any(len(r) == 0 for r in ranges):
-        # An axis shorter than the overlap yields an empty grid: no patch
-        # runs and the result is zeros. The out_path contract (stores
-        # written, lazy handles returned) still holds.
-        if predigest:
-            plan, qaff = (np.zeros(dim, np.uint8),
-                          np.zeros((3,) + dim, np.uint8))
-            if out_path is None:
-                return plan, qaff
-            write_zarr(out_path[0], plan)
-            write_zarr(out_path[1], qaff)
-            return read(out_path[0]), read(out_path[1])
-        out = np.zeros((out_channels,) + dim, np.float32)
-        out = out if affinity_mode else out[0]
-        if out_path is None:
-            return out
-        write_zarr(out_path, out)
-        return read(out_path)
-
-    # The first slab's load computes the normalization (so it falls under
-    # the first slab's ``predict.normalize`` span); later slabs reuse it.
-    norm = []
-    device_prep = prep.takes_device_prep(img, brightness_clip)
-    if device_prep:
-        cap = prep.histogram_cap(img.dtype, brightness_clip)
-    elif lazy:
-        def load_slab(lo, hi):
-            if not norm:
-                norm.extend(streaming_percentile(
-                    img, normalization_percentiles,
-                    transform=lambda b: np.minimum(b, brightness_clip),
-                ))
-            mn, mx = norm
-            block = np.minimum(np.asarray(img[lo:hi], np.float32),
-                               brightness_clip)
-            block = np.clip((block - mn) / (mx - mn + 1e-8), 0.0, 1.0)
-            return block.astype(np.float32)
-    else:
-        def load_slab(lo, hi):
-            if not norm:
-                vol = normalize(np.minimum(img, brightness_clip),
-                                percentiles=normalization_percentiles)
-                norm.append(np.ascontiguousarray(vol, dtype=np.float32))
-            return norm[0][lo:hi]
+        return stitch.empty_grid(dim, out_channels, affinity_mode, predigest,
+                                 out_path)
 
     device = runner.device
-    host_windows = windows = None
-    if blend_mode == "gaussian":
-        host_windows = tuple(
-            stitch.gaussian_window(p, trim, blend_sigma or p / 6.0)
-            for p in patch_shape
-        )
-        windows = tuple(
-            stitch.host_to_device(w, device) for w in host_windows
-        )
+    host_windows, windows = stitch.blend_windows(
+        blend_mode, blend_sigma, patch_shape, trim, device)
     wz, wy, wx = (
         stitch.host_to_device(w, device)
         for w in stitch.separable_weights(
@@ -422,7 +306,10 @@ def predict(
             (2 * 1024**3 // per_z - patch_shape[0]) // stride_z, 1
         )
     z_starts = list(ranges[0])
-    plans = _slab_plan(z_starts, patch_shape[0], trim, dim[0], max_slab_rows)
+    plans = slab_plan(z_starts, patch_shape[0], trim, dim[0], max_slab_rows)
+    slabs = prep.SlabPrep(img, brightness_clip, normalization_percentiles,
+                          patch_shape, overlap, [p["own"] for p in plans],
+                          device)
     writers = out = None
     if out_path is not None and predigest:
         writers = (ZarrAppendWriter(out_path[0], dim, np.uint8),
@@ -478,35 +365,6 @@ def predict(
                   pending[j + 1][:2] if j + 1 < len(pending) else None)
         del pending[:n]
 
-    def owned_blocks(raw):
-        # The volume's Z ranges owned by the slabs, each voxel once, on
-        # the device; the first slab's lies in its upload ``raw``.
-        for j, p in enumerate(plans):
-            lo, hi = p["own"]
-            if j == 0 and hi <= raw.shape[0]:
-                yield raw[lo:hi]
-            else:
-                yield prep.upload(img[lo:hi], cap, device)
-
-    def prep_on_device(in_lo, in_hi):
-        with annotate("predict.upload"):
-            raw = prep.upload(img[in_lo:in_hi], cap, device)
-        with annotate("predict.normalize"):
-            if not norm:
-                blocks = owned_blocks(raw)
-                norm.extend(prep.histogram_percentiles(
-                    prep.clip_histogram(blocks, cap), img.size,
-                    normalization_percentiles, brightness_clip))
-            # Pad with the REAL grid so the reflection anchors at the last
-            # patch's tail segment.
-            pads, fills = stitch.reflect_pad_plan(
-                raw.shape, patch_shape, overlap)
-            slab = prep.normalize_padded(raw, *norm, brightness_clip, pads)
-        with annotate("predict.pad"):
-            stitch.reflect_pad_device(slab, raw.shape, fills)
-        predict.device_prep_slabs += 1
-        return slab
-
     # One-slab-deep pipeline: each batch's newly final planes (a digest:
     # the slab's) are divided and queued for the host on a second stream,
     # and a slab's copies are fetched once the next slab's device work
@@ -519,19 +377,8 @@ def predict(
     for plan in plans:
         prev_copies = len(pending)  # the previous slab's
         in_lo, in_hi = plan["in_range"]
-        in_hi = min(in_hi, dim[0])
-        if device_prep:
-            slab = prep_on_device(in_lo, in_hi)
-        else:
-            with annotate("predict.normalize"):
-                slab = load_slab(in_lo, in_hi)
-            # Pad with the REAL grid so the reflection anchors at the last
-            # patch's tail segment.
-            with annotate("predict.pad"):
-                slab, _ = stitch.reflect_pad_to_grid(
-                    slab, patch_shape, overlap)
-            with annotate("predict.upload"):
-                slab = stitch.host_to_device(slab, device)
+        slab = slabs.slab(in_lo, min(in_hi, dim[0]))
+        predict.device_prep_slabs += slabs.on_device
         starts = [
             (z_starts[r] - in_lo, y, x)
             for r in plan["rows"]

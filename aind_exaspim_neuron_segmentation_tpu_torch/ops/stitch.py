@@ -7,7 +7,8 @@ gaussian window) and scatter-added into the accumulator by kernel K1
 (:func:`..ops.scatter.scatter_batch`). The blend weight is never
 accumulated: it is the separable outer product of per-axis hit counts,
 computed on the host and divided out on the device, and voxels of weight
-0 stay exactly 0.
+0 stay exactly 0. ``predict`` and ``predict_sharded`` both take their
+argument checks, blend windows and empty-grid result from here.
 """
 
 import numpy as np
@@ -16,9 +17,56 @@ import torch
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_grid_ranges,
 )
+from aind_exaspim_neuron_segmentation_tpu_torch.io import read
+from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import write_zarr
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.scatter import (
     scatter_batch,
 )
+
+
+def check_call(runner, affinity_mode, predigest, out_path, blend_mode):
+    """Refuse a sliding-window call that cannot run; returns the output
+    channel count."""
+    out_channels = 3 if affinity_mode else 1
+    if runner.output_channels != out_channels:
+        raise ValueError(
+            f"model has {runner.output_channels} output channels, "
+            f"affinity_mode={affinity_mode} needs {out_channels}"
+        )
+    if predigest and not affinity_mode:
+        raise ValueError("predigest=True requires affinity_mode=True")
+    if predigest and out_path is not None and (
+        not isinstance(out_path, (tuple, list)) or len(out_path) != 2
+    ):
+        raise ValueError(
+            "predigest streams TWO stores; pass "
+            "out_path=(plan_path, qaff_path)"
+        )
+    if blend_mode not in ("uniform", "gaussian"):
+        raise ValueError(f"unknown blend_mode {blend_mode!r}")
+    return out_channels
+
+
+def empty_grid(dim, out_channels, affinity_mode, predigest, out_path,
+               write=True, sync=None):
+    """The zeros of a call whose grid is empty (an axis shorter than the
+    overlap); with ``out_path``, written there (where ``write``), then
+    ``sync()``, then the stores' lazy handles."""
+    if predigest:
+        arrays = (np.zeros(dim, np.uint8), np.zeros((3,) + dim, np.uint8))
+        paths = out_path
+    else:
+        out = np.zeros((out_channels,) + dim, np.float32)
+        arrays = (out if affinity_mode else out[0],)
+        paths = (out_path,)
+    if out_path is not None:
+        if write:
+            for path, arr in zip(paths, arrays):
+                write_zarr(path, arr)
+        if sync is not None:
+            sync()
+        arrays = tuple(read(p) for p in paths)
+    return arrays if predigest else arrays[0]
 
 
 def gaussian_window(patch, trim, sigma):
@@ -32,6 +80,17 @@ def gaussian_window(patch, trim, sigma):
     pos = np.arange(core, dtype=np.float32) + trim
     center = (patch - 1) / 2.0
     return np.exp(-0.5 * ((pos - center) / sigma) ** 2).astype(np.float32)
+
+
+def blend_windows(blend_mode, blend_sigma, patch_shape, trim, device):
+    """``(host, device)`` per-axis windows of ``blend_mode``: each a tuple
+    of :func:`gaussian_window` for 'gaussian' (sigma defaults to patch /
+    6), None for 'uniform'."""
+    if blend_mode != "gaussian":
+        return None, None
+    host = tuple(gaussian_window(p, trim, blend_sigma or p / 6.0)
+                 for p in patch_shape)
+    return host, tuple(host_to_device(w, device) for w in host)
 
 
 def axis_hit_counts(dim, patch, overlap, trim, window=None):
@@ -61,6 +120,14 @@ def separable_weights(img_shape, patch_shape, overlap, trim, windows=None):
     )
 
 
+def reflect_tail(tail_start, dim, pad):
+    """The source planes of ``pad`` planes past ``dim``: the tail segment
+    ``[tail_start, dim)`` reflected about its own end (numpy's 'reflect',
+    multi-bounce included)."""
+    seg = np.arange(tail_start, dim)
+    return np.pad(seg, (0, pad), mode="reflect")[dim - tail_start:]
+
+
 def reflect_pad_plan(shape, patch_shape, overlap):
     """Pad widths and plane fills that grid-pad a volume of ``shape``.
 
@@ -85,11 +152,7 @@ def reflect_pad_plan(shape, patch_shape, overlap):
         if pad == 0:
             continue
         d = shape[axis]
-        tail_start = ranges[axis][-1]
-        # source plane of each pad position: np.pad 'reflect' of the tail
-        # segment about its own end (multi-bounce included)
-        seg = np.arange(tail_start, d)
-        index = np.pad(seg, (0, pad), mode="reflect")[d - tail_start:]
+        index = reflect_tail(ranges[axis][-1], d, pad)
         box = [slice(0, padded[a] if a < axis else shape[a])
                for a in range(3)]
         dst = list(box)

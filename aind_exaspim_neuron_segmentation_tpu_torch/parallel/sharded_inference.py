@@ -28,8 +28,9 @@ Feature parity with single-device ``predict``:
   histogram ``all_reduce`` per round) with ``np.percentile``'s float64
   interpolation on the fetched values (:func:`.stats.lerp_plan`) -- no
   host pass over the volume. The slab is then normalized in float64 and
-  rounded to float32, as the host normalize does, so the model sees the
-  input bits ``predict`` gives it.
+  rounded to float32 (:func:`..ops.prep.normalize_padded`), as
+  ``predict`` does, so the model sees the input bits ``predict`` gives
+  it.
 * **Gaussian blend** (``blend_mode='gaussian'``) matches ``predict``.
 * **Streaming output**: with ``out_path`` each rank writes its own rows
   into a shared Zarr store (disjoint chunk keys); host memory stays
@@ -52,23 +53,18 @@ import torch
 
 from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
     DEFAULT_PERCENTILES,
-    streaming_percentile,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_grid_ranges,
+    slab_plan,
 )
-from aind_exaspim_neuron_segmentation_tpu_torch.inference import (
-    ModelRunner,
-    _slab_plan,
-    _Volume5DView,
-)
+from aind_exaspim_neuron_segmentation_tpu_torch.inference import ModelRunner
 from aind_exaspim_neuron_segmentation_tpu_torch.io import read
 from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
     ZarrAppendWriter,
     ZarrPlaneWriter,
-    write_zarr,
 )
-from aind_exaspim_neuron_segmentation_tpu_torch.ops import stitch
+from aind_exaspim_neuron_segmentation_tpu_torch.ops import prep, stitch
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
     predigest_shard,
 )
@@ -115,17 +111,15 @@ class _AxisPlan:
 def _axis_pad_map(dim, patch, starts, total_len):
     """Index map padded-position -> source plane for one axis.
 
-    Replicates :func:`..ops.stitch.reflect_pad_to_grid` (reflection
-    anchored at the LAST patch's tail segment, multi-bounce included)
-    followed by edge extension out to ``total_len`` -- as an index map,
-    so lazy sources can be sliced per rank instead of padded densely.
+    The grid's reflect pad (:func:`..ops.stitch.reflect_tail`, as
+    :func:`..ops.stitch.reflect_pad_plan` takes it) followed by edge
+    extension out to ``total_len`` -- as an index map, so lazy sources
+    can be sliced per rank instead of padded densely.
     """
     idx = np.arange(dim)
     pad = max(starts[-1] + patch - dim, 0)
     if pad > 0:
-        tail = idx[starts[-1]:]
-        ext = np.pad(tail, (0, pad), mode="reflect")
-        idx = np.concatenate([idx, ext[dim - starts[-1]:]])
+        idx = np.concatenate([idx, stitch.reflect_tail(starts[-1], dim, pad)])
     if total_len > len(idx):
         idx = np.pad(idx, (0, total_len - len(idx)), mode="edge")
     return idx[:total_len]
@@ -169,27 +163,6 @@ def _ysplit_chunk_grid(trim, own, dim):
             RuntimeWarning, stacklevel=3,
         )
     return (g, min(256, dim[2]))
-
-
-def _empty_grid(dim, out_channels, affinity_mode, predigest, out_path,
-                mesh):
-    """An axis shorter than the overlap: no patch runs, the result is
-    zeros; with ``out_path`` the mesh's first rank writes the stores."""
-    if predigest:
-        arrays = (np.zeros(dim, np.uint8), np.zeros((3,) + dim, np.uint8))
-        paths = out_path
-    else:
-        out = np.zeros((out_channels,) + dim, np.float32)
-        arrays = (out if affinity_mode else out[0],)
-        paths = (out_path,)
-    if out_path is None:
-        return arrays if predigest else arrays[0]
-    if mesh.coords == (0,) * len(mesh.shape):
-        for path, arr in zip(paths, arrays):
-            write_zarr(path, arr)
-    barrier(mesh)
-    handles = tuple(read(p) for p in paths)
-    return handles if predigest else handles[0]
 
 
 @torch.inference_mode()
@@ -266,37 +239,10 @@ def predict_sharded(
         return (timer.stage(name) if timer is not None
                 else contextlib.nullcontext())
 
-    lazy = not isinstance(img, (np.ndarray, torch.Tensor, list, tuple))
-    if isinstance(img, torch.Tensor):
-        img = img.detach().cpu().numpy()
-    elif not lazy:
-        img = np.asarray(img)
-    if getattr(img, "ndim", 0) == 5:
-        img = _Volume5DView(img) if lazy else img[0, 0]
-    if img.ndim != 3:
-        raise ValueError(f"expected 3D or 5D input, got shape {img.shape}")
-
+    img = prep.as_volume(img)
     runner = model if isinstance(model, ModelRunner) else ModelRunner(model)
-    out_channels = 3 if affinity_mode else 1
-    if runner.output_channels != out_channels:
-        raise ValueError(
-            f"model has {runner.output_channels} output channels, "
-            f"affinity_mode={affinity_mode} needs {out_channels}"
-        )
-    if predigest:
-        if not affinity_mode:
-            raise ValueError("predigest=True requires affinity_mode=True")
-        if out_path is not None and (
-            not isinstance(out_path, (tuple, list)) or len(out_path) != 2
-        ):
-            raise ValueError(
-                "predigest streams TWO stores; pass "
-                "out_path=(plan_path, qaff_path) -- or stream f32 with a "
-                "single out_path and digest the lazy handle via "
-                "affinities_to_segmentation"
-            )
-    if blend_mode not in ("uniform", "gaussian"):
-        raise ValueError(f"unknown blend_mode {blend_mode!r}")
+    out_channels = stitch.check_call(runner, affinity_mode, predigest,
+                                     out_path, blend_mode)
     mesh = mesh or make_mesh()
     axes = mesh.axis_names
     if len(axes) == 1:
@@ -323,8 +269,11 @@ def predict_sharded(
     dim = tuple(int(d) for d in img.shape)
     ranges = patch_grid_ranges(dim, patch_shape, overlap)
     if any(len(r) == 0 for r in ranges):
-        return _empty_grid(dim, out_channels, affinity_mode, predigest,
-                           out_path, mesh)
+        # the mesh's first rank writes the stores
+        return stitch.empty_grid(
+            dim, out_channels, affinity_mode, predigest, out_path,
+            write=mesh.coords == (0,) * len(mesh.shape),
+            sync=lambda: barrier(mesh))
 
     # --- Band plan over Z patch rows -----------------------------------
     # Bands reuse single-device predict's slab planner: each band owns
@@ -343,15 +292,8 @@ def predict_sharded(
             n_rows_all, nz, patch_shape[0] - overlap[0], patch_shape[0],
             plane_bytes,
         )
-    if not max_band_rows or max_band_rows >= n_rows_all:
-        band_plans = [dict(
-            rows=list(range(n_rows_all)), own=(0, dim[0]),
-            in_range=(z_starts_all[0], z_starts_all[-1] + patch_shape[0]),
-        )]
-    else:
-        band_plans = _slab_plan(
-            z_starts_all, patch_shape[0], trim, dim[0], max_band_rows
-        )
+    band_plans = slab_plan(z_starts_all, patch_shape[0], trim, dim[0],
+                           max_band_rows or n_rows_all)
     banded = len(band_plans) > 1
     if predigest and banded:
         raise ValueError(
@@ -412,10 +354,8 @@ def predict_sharded(
     first_slab = None
     if banded:
         with _st("normalize"):
-            mn, mx = streaming_percentile(
-                img, normalization_percentiles,
-                transform=lambda b: np.minimum(b, brightness_clip),
-            )
+            mn, mx = prep.clipped_percentiles(img, brightness_clip,
+                                              normalization_percentiles)
     else:
         n_total = int(np.prod(dim))
         ks, q_plan = stats.rank_plan(n_total, normalization_percentiles)
@@ -435,11 +375,6 @@ def predict_sharded(
             order_vals = stats.order_stats_sharded(vals, ks, mesh).cpu()
             del vals, mask
         mn, mx = stats.lerp_plan(order_vals.numpy(), q_plan)
-    scale = float(mx) - float(mn) + 1e-8
-
-    def normalize(slab):
-        # float64 as the host normalize, rounded once to float32
-        return ((slab.double() - float(mn)) / scale).clamp_(0.0, 1.0).float()
 
     # --- Patch starts / masks / blend weights -------------------------
     # Starts are band-local and identical for every band (consecutive
@@ -461,15 +396,8 @@ def predict_sharded(
         ]
         return np.asarray(valid + [0.0] * pad_n, np.float32)
 
-    host_windows = windows = None
-    if blend_mode == "gaussian":
-        host_windows = tuple(
-            stitch.gaussian_window(p, trim, blend_sigma or p / 6.0)
-            for p in patch_shape
-        )
-        windows = tuple(
-            stitch.host_to_device(w, device) for w in host_windows
-        )
+    host_windows, windows = stitch.blend_windows(
+        blend_mode, blend_sigma, patch_shape, trim, device)
 
     # This rank's weight slices over the kept (own + spill) windows; the
     # global per-axis weight vectors are sliced at each band's offset.
@@ -504,8 +432,11 @@ def predict_sharded(
                 head.append((host, cut))
 
         receives_z = zp.spill > 0 and nz > 1 and ci > 0
+        # float64 as the host normalize, rounded once to float32; the
+        # slab was clipped at its load
+        slab = prep.normalize_padded(slab, mn, mx, math.inf, (0, 0, 0))
         acc = stitch.accumulate_predictions(
-            runner.module, normalize(slab), starts, valid,
+            runner.module, slab, starts, valid,
             patch_shape=tuple(patch_shape), trim=trim,
             batch_size=batch_size, out_channels=out_channels,
             windows=windows, on_batch=keep_head if receives_z else None,

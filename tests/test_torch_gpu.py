@@ -29,6 +29,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_grid_ranges,
     patch_starts_array,
+    slab_plan,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
     predigest,
@@ -142,8 +143,8 @@ def slab_at_once(img, runner, *, patch_shape, overlap, trim, batch_size,
                       dim, patch_shape, overlap, trim, windows=host_windows))
     channels = 3 if affinity_mode else 1
     out = np.zeros((channels,) + dim, np.float32)
-    plans = inference._slab_plan(z_starts, patch_shape[0], trim, dim[0],
-                                 max_slab_rows or len(z_starts))
+    plans = slab_plan(z_starts, patch_shape[0], trim, dim[0],
+                      max_slab_rows or len(z_starts))
     for plan in plans:
         in_lo, in_hi = plan["in_range"]
         slab = stitch.reflect_pad_to_grid(

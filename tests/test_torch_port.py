@@ -35,6 +35,7 @@ from aind_exaspim_neuron_segmentation_tpu.ops import stitch as jstitch
 from aind_exaspim_neuron_segmentation_tpu_torch import inference
 from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_grid_ranges,
+    slab_plan,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models import convert
 from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
@@ -283,7 +284,7 @@ def test_predict_slabbed_equals_full(runners, volumes, dtype):
     volume and a lazy handle none."""
     _, trun = runners
     vol = volumes[dtype]
-    n_slabs = len(inference._slab_plan(
+    n_slabs = len(slab_plan(
         list(patch_grid_ranges(vol.shape, PATCH, OVERLAP)[0]),
         PATCH[0], TRIM, vol.shape[0], 1))
     assert n_slabs > 1
@@ -333,15 +334,18 @@ def test_predict_5d_input_and_mask_mode(volume):
     assert 0 <= out.min() and out.max() <= 1
 
 
-@pytest.mark.parametrize("bad", ["channels", "blend", "out_path", "lazy",
-                                 "predigest_mask"])
-def test_predict_rejects(runners, volume, bad, tmp_path):
-    """``out_path``: a digest needs two stores; ``lazy``: a lazy handle of
+BAD_CALLS = ["channels", "blend", "out_path", "lazy", "predigest_mask"]
+
+
+def _bad_call(bad, runners, volume, tmp_path):
+    """(img, runner, keywords) of a call ``predict`` and
+    ``predict_sharded`` both refuse.
+    ``out_path``: a digest needs two stores; ``lazy``: a lazy handle of
     the wrong rank."""
     from aind_exaspim_neuron_segmentation_tpu_torch import io
 
     _, trun = runners
-    args, err = dict(KW), ValueError
+    args = dict(KW)
     img = volume
     if bad == "channels":
         args["affinity_mode"] = False
@@ -357,8 +361,27 @@ def test_predict_rejects(runners, volume, bad, tmp_path):
         args.update(affinity_mode=False, predigest=True)
         trun = inference.load_model(affinity_mode=False, device="cpu",
                                     width_multiplier=WIDTH)
-    with pytest.raises(err):
+    return img, trun, args
+
+
+@pytest.mark.parametrize("bad", BAD_CALLS)
+def test_predict_rejects(runners, volume, bad, tmp_path):
+    img, trun, args = _bad_call(bad, runners, volume, tmp_path)
+    with pytest.raises(ValueError):
         inference.predict(img, trun, **args)
+
+
+@pytest.mark.parametrize("bad", BAD_CALLS)
+def test_predict_sharded_rejects(runners, volume, bad, tmp_path):
+    """The same calls on a one-rank mesh: both entries share their checks
+    (``predict_sharded`` takes no ``verbose``)."""
+    from aind_exaspim_neuron_segmentation_tpu_torch import parallel
+
+    img, trun, args = _bad_call(bad, runners, volume, tmp_path)
+    del args["verbose"]
+    with pytest.raises(ValueError):
+        parallel.predict_sharded(img, trun, mesh=parallel.make_mesh(1),
+                                 **args)
 
 
 @pytest.mark.parametrize("shape", [(72, 56, 40), (33, 56, 40), (58, 30, 9)])
@@ -531,6 +554,58 @@ def test_port_and_chip_smoke_sources_import_no_jax():
                 continue
             bad = [n for n in names if _is_forbidden(n)]
             assert not bad, f"{path} imports {bad}"
+
+
+def _imports(path):
+    """(module, names) of every import in a port source file, at module
+    level or in a function; ``names`` are those a ``from`` import takes."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name, []
+        elif isinstance(node, ast.ImportFrom):
+            module = node.module or ""
+            if node.level:  # relative: resolve against the file's package
+                rel = os.path.relpath(path, REPO)[:-3].split(os.sep)
+                module = ".".join(rel[: len(rel) - node.level]
+                                  + ([module] if module else []))
+            yield module, [alias.name for alias in node.names]
+
+
+def _port_files(sub):
+    root = os.path.join(REPO, PORT, sub)
+    return [os.path.join(d, n) for d, _, names in os.walk(root)
+            for n in names if n.endswith(".py")]
+
+
+def test_layers_import_downward():
+    """``core`` and ``ops`` import neither ``parallel`` nor ``inference``;
+    ``parallel`` imports no private name of ``inference``."""
+    upper = (PORT + ".parallel", PORT + ".inference")
+    for path in _port_files("core") + _port_files("ops"):
+        for module, names in _imports(path):
+            targets = [module] + [f"{module}.{n}" for n in names]
+            bad = [t for t in targets
+                   if any(t == u or t.startswith(u + ".") for u in upper)]
+            assert not bad, f"{path} imports {bad}"
+    for path in _port_files("parallel"):
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for module, names in _imports(path):
+            if module == PORT + ".inference":
+                assert not [n for n in names if n.startswith("_")], path
+        # ``from PORT import inference`` then ``inference._name``
+        aliases = {a.asname or a.name for node in ast.walk(tree)
+                   if isinstance(node, ast.ImportFrom) and node.module == PORT
+                   for a in node.names if a.name == "inference"}
+        private = [node.attr for node in ast.walk(tree)
+                   if isinstance(node, ast.Attribute)
+                   and isinstance(node.value, ast.Name)
+                   and node.value.id in aliases
+                   and node.attr.startswith("_")]
+        assert not private, f"{path} uses inference.{private}"
 
 
 def test_cuda_entry_points_raise_without_cuda(monkeypatch, tmp_path):

@@ -1,5 +1,6 @@
 """``predict``'s device preparation of integer input (``ops.prep``) against
-its host preparation, on the CPU: the same float32 bits."""
+its host preparation, on the CPU: the same float32 bits; and the lazy
+route's clip, which takes any dtype."""
 
 import json
 import pathlib
@@ -8,7 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from aind_exaspim_neuron_segmentation_tpu_torch import inference
+from aind_exaspim_neuron_segmentation_tpu_torch import inference, io
+from aind_exaspim_neuron_segmentation_tpu_torch.core.normalize import (
+    streaming_percentile,
+)
+from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import slab_plan
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import prep
 from benchmark import inputs
 from tests.test_torch_gpu import assert_same_bits, device_prep, host_prep
@@ -88,7 +93,7 @@ def test_clip_histogram_counts_each_voxel_once_over_slabs():
     img = small_volume(np.uint16, 3000)
     cap = prep.histogram_cap(img.dtype, 1000)
     z_starts = list(range(0, img.shape[0] - 20 + 16, 16))
-    plans = inference._slab_plan(z_starts, 20, 2, img.shape[0], 1)
+    plans = slab_plan(z_starts, 20, 2, img.shape[0], 1)
     assert len(plans) == 3
     hist = prep.clip_histogram(
         (prep.upload(img[slice(*p["own"])], cap, CPU) for p in plans), cap)
@@ -116,3 +121,44 @@ def test_device_prep_is_chosen_by_dtype(img, clip, takes):
                                        (float("inf"), 65535)])
 def test_histogram_cap(clip, cap):
     assert prep.histogram_cap(np.uint16, clip) == cap
+
+
+@pytest.mark.parametrize("dtype", ["uint8", "uint16", "int16", "int32",
+                                   "float32", "float64"])
+@pytest.mark.parametrize("clip", [1000, 1000.3, np.float64(999.7)],
+                         ids=["int", "float", "float64"])
+def test_clipped_percentiles_keep_the_bits_of_a_clip_in_the_dtype(dtype,
+                                                                  clip):
+    """The lazy route clips each streamed block in float32: the bits of
+    ``np.minimum`` in the block's own dtype, which overflows for uint8
+    under 1000 (held to its uint16 copy there)."""
+    rng = np.random.default_rng(3)
+    low = 0 if dtype.startswith("uint") else -3000
+    high = 256 if dtype == "uint8" else 3000
+    img = rng.uniform(low, high, (70, 9, 8)).astype(dtype)
+    ref = img.astype(np.uint16) if dtype == "uint8" else img
+    pcts = (1, 99.9, 50)
+    want = streaming_percentile(ref, pcts,
+                                transform=lambda b: np.minimum(b, clip))
+    got = prep.clipped_percentiles(img, clip, pcts)
+    assert got.dtype == want.dtype and got.tobytes() == want.tobytes()
+
+
+def test_lazy_uint8_store_predicts_as_in_memory(tmp_path):
+    """A lazy uint8 store under the default clip of 1000 predicts (its
+    blocks are clipped in float32) and gives the in-memory volume's
+    result, which is prepared on the device, to the lazy route's
+    float32 scale."""
+    rng = np.random.default_rng(5)
+    img = rng.integers(0, 256, (40, 40, 36)).astype(np.uint8)
+    path = str(tmp_path / "u8.zarr")
+    io.write_zarr(path, img, chunks=(8, 16, 16))
+    runner = inference.load_model(device="cpu", width_multiplier=0.25)
+    kw = dict(patch_shape=(32,) * 3, overlap=(8,) * 3, trim=4,
+              batch_size=4, verbose=False)
+    before = inference.predict.device_prep_slabs
+    want = inference.predict(img, runner, **kw)
+    assert inference.predict.device_prep_slabs == before + 1
+    got = inference.predict(io.read(path), runner, max_slab_rows=1, **kw)
+    assert inference.predict.device_prep_slabs == before + 1
+    np.testing.assert_allclose(got, want, atol=2e-6)
