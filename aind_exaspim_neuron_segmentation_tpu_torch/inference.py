@@ -107,7 +107,10 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
 
     ``fold_bn`` folds eval-mode BatchNorm into the conv weights
     (:func:`~.models.convert.fold_batchnorm`); default: on for bfloat16,
-    off for float32.
+    off for float32. On a CUDA device the UNet3D's conv weights are laid
+    out channels-last, so its activations run NDHWC, the layout of
+    cuDNN's 3D conv kernels, and no conv transposes its input or output
+    (the CPU keeps NCDHW).
 
     A checkpoint of MONAI's ``SwinUNETR`` (its
     ``swinViT.patch_embed.proj.weight`` key) builds a
@@ -141,7 +144,10 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
         folded = fold_batchnorm(module.state_dict(), trilinear=trilinear)
         module = UNet3D(fused_bn=True, **kw)
         module.load_state_dict(folded, strict=True)
-    return ModelRunner(module.to(device=device, dtype=dtype))
+    module = module.to(device=device, dtype=dtype)
+    if device.type == "cuda":
+        module = module.to(memory_format=torch.channels_last_3d)
+    return ModelRunner(module)
 
 
 def _load_swin_unetr(state_dict, affinity_mode, device, dtype,

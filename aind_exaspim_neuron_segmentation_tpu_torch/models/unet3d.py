@@ -19,6 +19,17 @@ spatial axis. In eval mode, where the geometry allows, the last two
 decoder stages compute only what that region needs (the valid-region
 decoder, see :class:`Up`).
 
+Layout: the activations take the memory format of the conv weights. With
+the weights channels-last (``torch.channels_last_3d``, as
+``inference.load_model`` lays them out on a card), every activation stays
+NDHWC in memory from the stem to ``outc`` -- the convs, max-pools,
+LeakyReLUs and concats keep it, and each upsample runs on NCDHW memory
+between two explicit conversions (:meth:`Up.upsample`) -- while every
+shape stays the logical (N, C, D, H, W); the logits come back NCDHW in
+memory.
+``UNet3D.ndhwc_forwards`` counts the forwards in which every conv took an
+NDHWC input.
+
 ``state_dict`` keys are those of the reference checkpoints
 (``inc.double_conv.0.weight``, ``down1.maxpool_conv.1.double_conv.1.
 running_mean``, ``up1.up.weight``, ``outc.conv.bias``, ...), so a
@@ -40,11 +51,18 @@ from aind_exaspim_neuron_segmentation_tpu_torch.ops.upsample import (  # noqa: F
 DEFAULT_CHANNELS = (32, 64, 128, 256, 512)
 
 
+def is_ndhwc(x):
+    """Whether the (N, C, D, H, W) tensor ``x`` lies channels-last in
+    memory (NDHWC, ``torch.channels_last_3d``)."""
+    return x.is_contiguous(memory_format=torch.channels_last_3d)
+
+
 class DoubleConv(nn.Module):
     """Two (Conv3d k=3 p=1 -> BatchNorm3d -> LeakyReLU 0.01) blocks.
 
     With ``fused_bn=True`` each BatchNorm is an ``nn.Identity``: eval-mode
-    BatchNorm has been folded into the conv weight and bias.
+    BatchNorm has been folded into the conv weight and bias. ``ndhwc``
+    says whether both convs of the last forward took an NDHWC input.
     """
 
     def __init__(self, in_channels, out_channels, mid_channels=None,
@@ -65,15 +83,18 @@ class DoubleConv(nn.Module):
             norm(out_channels),
             nn.LeakyReLU(0.01, inplace=True),
         )
+        self.ndhwc = False
 
     def forward(self, x, padding=1):
         """Apply both conv blocks; ``padding=0`` runs both convs unpadded
         (each spatial side shrinks by 2) with the same weights."""
-        if padding == 1:
-            return self.double_conv(x)
+        ndhwc = True
         for m in self.double_conv:
+            conv = isinstance(m, nn.Conv3d)
+            ndhwc = ndhwc and (is_ndhwc(x) or not conv)
             x = (F.conv3d(x, m.weight, m.bias, padding=padding)
-                 if isinstance(m, nn.Conv3d) else m(x))
+                 if conv and padding != 1 else m(x))
+        self.ndhwc = ndhwc
         return x
 
 
@@ -168,16 +189,38 @@ class Up(nn.Module):
         if fast:
             ranges = tuple((t - 2, 2 * (a + 2 * s) - (t - 2))
                            for a in x1.shape[2:])
-            x1 = trilinear_upsample_x2(x1, out_ranges=ranges, in_trim=s)
+            x1 = self.upsample(x1, out_ranges=ranges, in_trim=s)
             c = t - 2
             x2 = x2[:, :, c:x2.shape[2] - c, c:x2.shape[3] - c,
                     c:x2.shape[4] - c]
             return self.conv(torch.cat([x2, x1], dim=1), padding=0)
-        x1 = pad_to_skip(self.up(x1), x2)
+        x1 = pad_to_skip(self.upsample(x1), x2)
         out = self.conv(torch.cat([x2, x1], dim=1))
         if t > 0:
             out = out[:, :, t:-t, t:-t, t:-t]
         return out
+
+
+    def upsample(self, x1, **ranged):
+        """``self.up(x1)``, or with ``ranged`` arguments the row-ranged
+        :func:`trilinear_upsample_x2`, in the memory format of the block's
+        convs.
+
+        PyTorch's CUDA trilinear kernel spreads the output's spatial
+        positions over its threads, so on NDHWC memory no warp's accesses
+        coalesce (2.9x its NCDHW time at the production shapes on an
+        H100): an NDHWC block upsamples NCDHW memory and lays the rows it
+        keeps out NDHWC again.
+        """
+        if not self.trilinear:
+            return self.up(x1)
+        ndhwc = is_ndhwc(self.conv.double_conv[0].weight)
+        if ndhwc:
+            x1 = x1.contiguous()
+        x1 = trilinear_upsample_x2(x1, **ranged) if ranged else self.up(x1)
+        if not ndhwc:
+            return x1
+        return x1.contiguous(memory_format=torch.channels_last_3d)
 
 
 class OutConv(nn.Module):
@@ -195,10 +238,14 @@ class OutConv(nn.Module):
 class UNet3D(nn.Module):
     """4-level 3D U-Net over (N, 1, D, H, W) volumes, logits out.
 
-    Activations run in the dtype of the parameters (bfloat16 on the GPU
-    in production, float32 for parity); the logits come back in the
-    dtype of the input.
+    Activations run in the dtype and the memory format of the conv
+    weights (bfloat16 and channels-last on the GPU in production, float32
+    and NCDHW for parity); the logits come back NCDHW in the dtype of the
+    input. ``UNet3D.ndhwc_forwards`` counts the forwards whose every conv
+    took an NDHWC input.
     """
+
+    ndhwc_forwards = 0
 
     def __init__(self, output_channels=1, trilinear=True,
                  width_multiplier=1, channels=DEFAULT_CHANNELS,
@@ -254,7 +301,10 @@ class UNet3D(nn.Module):
         y = self.up2(y, x3)
         y = self.up3(y, x2, valid_trim=vt3)
         y = self.up4(y, x1, valid_trim=t, x1_trim=vt3)
-        return self.outc(y).to(in_dtype)
+        if all(m.ndhwc for m in self.modules() if isinstance(m, DoubleConv)):
+            UNet3D.ndhwc_forwards += 1
+        # one copy casts the logits and lays them out NCDHW
+        return self.outc(y).to(in_dtype, memory_format=torch.contiguous_format)
 
 
 @torch.no_grad()

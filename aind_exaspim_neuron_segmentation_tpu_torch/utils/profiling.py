@@ -40,6 +40,12 @@ metric (``benchmark/metrics/``) that reads each:
     by the (window, head, patch) triples it attended -- the tests, against
     ``benchmark/counts/swinunetr.py``;
 
+* ``models.unet3d.UNet3D``'s forward, once per batch of patches: the
+  counter ``UNet3D.ndhwc_forwards``, which the forward increments when
+  every conv took an NDHWC (channels-last) input, as on a card behind
+  ``inference.load_model`` -- the tests (one a batch of ``predict``'s;
+  none in training);
+
 * ``Trainer.train_batch``, once per step:
 
   - ``train.input``: the upload, the augmentation and the targets --

@@ -31,6 +31,10 @@ from aind_exaspim_neuron_segmentation_tpu_torch.core.patches import (
     patch_starts_array,
     slab_plan,
 )
+from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
+    UNet3D,
+    is_ndhwc,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
     predigest,
     prep,
@@ -489,19 +493,22 @@ def test_predict_sharded_nccl_world_one_equals_predict(cuda, no_tf32):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("layout", [torch.contiguous_format,
+                                    torch.channels_last_3d],
+                         ids=["ncdhw", "ndhwc"])
 @pytest.mark.parametrize("fused", [False, True], ids=["bn", "folded"])
 def test_valid_region_forward_on_card_equals_sliced_full(cuda, no_tf32,
-                                                         fused):
+                                                         fused, layout):
     """``UNet3D(valid_trim=t)`` on the card, float32 (TF32 off), width
-    0.25, 32^3: within MAE 1e-5 of the sliced full forward. The row-ranged
-    upsample is ``F.interpolate``'s own rows, so only cuDNN's choice of
-    algorithm for the unpadded convs could move a value (measured on the
-    H100: no value moves)."""
+    0.25, 32^3, laid out NCDHW or channels-last (as ``load_model`` lays it
+    out on a card): within MAE 1e-5 of the sliced full forward. The
+    row-ranged upsample is ``F.interpolate``'s own rows, so only cuDNN's
+    choice of algorithm for the unpadded convs could move a value
+    (measured on the H100: no value moves)."""
     from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
         fold_batchnorm,
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
-        UNet3D,
         init_weights,
     )
 
@@ -519,9 +526,10 @@ def test_valid_region_forward_on_card_equals_sliced_full(cuda, no_tf32,
         state = fold_batchnorm(net.state_dict())
         net = UNet3D(output_channels=3, width_multiplier=0.25, fused_bn=True)
         net.load_state_dict(state)
-    net = net.to(cuda).eval()
+    net = net.to(cuda).eval().to(memory_format=layout)
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (2, 1, 32, 32, 32)).astype(np.float32)).to(cuda)
+    before = UNet3D.ndhwc_forwards
     with torch.no_grad():
         full = net(x)
         for t in (2, 4, 8):
@@ -531,6 +539,8 @@ def test_valid_region_forward_on_card_equals_sliced_full(cuda, no_tf32,
                 fast.cpu().numpy(),
                 full[:, :, t:-t, t:-t, t:-t].cpu().numpy())
             assert fig["mae"] <= 1e-5, (t, fig)
+    ndhwc = layout == torch.channels_last_3d
+    assert UNet3D.ndhwc_forwards - before == (4 if ndhwc else 0)
 
 
 @pytest.mark.gpu
@@ -614,8 +624,10 @@ def test_swin_unetr_bf16_forward_on_card_within_the_cell_limits(cuda):
         img[z:z + 96, y:y + 96, w:w + 96]
         for z in (0, 96) for y in (0, 48, 96) for w in (0, 32, 64, 96)
     ][:16])[:, None].astype(np.float32)).to(cuda)
+    before = UNet3D.ndhwc_forwards
     with torch.inference_mode():
         got = torch.sigmoid(runner.module(x, valid_trim=8).float())
+    assert UNet3D.ndhwc_forwards == before
     saved = tf32_off()
     try:
         with torch.no_grad():
@@ -629,3 +641,74 @@ def test_swin_unetr_bf16_forward_on_card_within_the_cell_limits(cuda):
     limits = cfg["limits"]
     assert fig["mae"] <= limits["aff_mae"], fig
     assert fig["max_abs"] <= limits["aff_max_abs"], fig
+
+
+def tube_patches(device):
+    """16 normalized 96^3 patches of a seeded 192^3 uint16 tube volume
+    (the benchmark's generator) and the volume itself."""
+    from benchmark import inputs
+
+    block = inputs.tube_volume(17, 0, 192, 32, 4, 120, 350)[0]
+    img = normalize(np.minimum(block, 1000), percentiles=(1, 99.9))
+    starts = [(z, y, w) for z in (0, 96) for y in (0, 48, 96)
+              for w in (0, 32, 64, 96)][:16]
+    return torch.from_numpy(img.astype(np.float32)).to(device), starts, block
+
+
+@pytest.mark.gpu
+def test_unet3d_runner_is_channels_last_and_within_the_cell_limits(cuda):
+    """``load_model``'s UNet3D runner on the card is channels-last: at full
+    width, bf16, BatchNorm folded (``unet3d_affinity_infer``), one
+    ``forward_batch`` of 16 tube patches of 96^3 at trim 8 runs NDHWC and
+    lies within that cell's limits of the plain float32 NCDHW reference's
+    affinities (TF32 off)."""
+    from benchmark import harness
+    from benchmark.models import unet3d as arch
+    from benchmark.reference.precision import restore_tf32, tf32_off
+
+    cfg = harness.load_json("configs", "unet3d_affinity_infer.json")
+    volume, starts, block = tube_patches(cuda)
+    params = arch.weights(cfg, 17, cuda, block)
+    runner = arch.runner(cfg, params, cuda)
+    convs = [m.weight for m in runner.module.modules()
+             if isinstance(m, torch.nn.Conv3d) and m.weight.shape[2] > 1
+             and m.weight.shape[1] > 1]
+    assert len(convs) == 17 and all(is_ndhwc(w) for w in convs)
+    assert runner.module.outc.conv.weight.dtype == torch.bfloat16
+    starts_dev = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    before = UNet3D.ndhwc_forwards
+    with torch.inference_mode():
+        got = stitch.forward_batch(
+            runner.module, volume, starts_dev,
+            torch.ones(16, device=cuda), patch_shape=(96,) * 3, trim=8)
+    assert UNet3D.ndhwc_forwards == before + 1
+    assert got.is_contiguous() and got.shape == (16, 3, 80, 80, 80)
+    x = torch.stack([volume[z:z + 96, y:y + 96, w:w + 96]
+                     for z, y, w in starts])[:, None]
+    saved = tf32_off()
+    try:
+        with torch.no_grad():
+            want = torch.cat([torch.sigmoid(arch.forward(params, part))
+                              for part in x.split(4)])
+    finally:
+        restore_tf32(saved)
+    want = want[:, :, 8:-8, 8:-8, 8:-8]
+    fig = parity_line("UNet3D bf16 NDHWC on the card vs float32 reference",
+                      got.cpu().numpy(), want.cpu().numpy())
+    limits = cfg["limits"]
+    assert fig["mae"] <= limits["aff_mae"], fig
+    assert fig["max_abs"] <= limits["aff_max_abs"], fig
+
+
+@pytest.mark.gpu
+def test_predict_on_card_runs_every_batch_ndhwc(cuda):
+    """``predict`` of a 256^3 block at the benchmark's grid (patch 96,
+    overlap 32: 64 patches, batch 16) counts four NDHWC forwards."""
+    runner = inference.load_model(device=cuda, width_multiplier=0.25)
+    vol = np.random.default_rng(20).uniform(0, 1500, (256,) * 3).astype(
+        np.float32)
+    before = UNet3D.ndhwc_forwards
+    inference.predict(vol, runner, patch_shape=(96,) * 3,
+                      overlap=(32,) * 3, trim=8, batch_size=16,
+                      verbose=False)
+    assert UNet3D.ndhwc_forwards - before == 4
