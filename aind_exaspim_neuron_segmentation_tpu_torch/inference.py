@@ -46,7 +46,10 @@ from aind_exaspim_neuron_segmentation_tpu_torch.io import read
 from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
     ZarrAppendWriter,
 )
-from aind_exaspim_neuron_segmentation_tpu_torch.models import swin_unetr
+from aind_exaspim_neuron_segmentation_tpu_torch.models import (
+    mednext,
+    swin_unetr,
+)
 from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
     fold_batchnorm,
 )
@@ -64,8 +67,8 @@ from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
 
 
 class ModelRunner:
-    """A model bound for inference (eval mode, fixed device): a UNet3D or
-    a Swin UNETR, either taking ``valid_trim=`` and exposing
+    """A model bound for inference (eval mode, fixed device): a UNet3D, a
+    Swin UNETR or a MedNeXt, each taking ``valid_trim=`` and exposing
     ``output_channels``."""
 
     def __init__(self, module):
@@ -118,7 +121,11 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
     the checkpoint's shapes (``trilinear`` and ``fold_bn`` do not apply:
     it has neither upsampling nor BatchNorm); its output channels must be
     the ones ``affinity_mode`` asks for, and ``width_multiplier`` must be
-    1.
+    1. So does a checkpoint of MIC-DKFZ's ``MedNeXt`` (its ``stem.weight``
+    and ``out_0.conv_out.weight`` keys), which builds a
+    :class:`~.models.mednext.MedNeXt` (a training checkpoint's
+    ``dummy_tensor`` is dropped; its deep-supervision heads load and never
+    run); it runs NCDHW on every device, the faster layout on a card.
     """
     device = resolve_device(device)
     if dtype is None:
@@ -127,8 +134,14 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
     if path is not None:
         state_dict = torch.load(path, map_location="cpu", weights_only=True)
         if swin_unetr.is_swin_unetr_state_dict(state_dict):
-            return _load_swin_unetr(state_dict, affinity_mode, device,
-                                    dtype, width_multiplier)
+            return _published(swin_unetr.SwinUNETR,
+                              swin_unetr.widths_from_state_dict, state_dict,
+                              affinity_mode, width_multiplier, device, dtype)
+        if mednext.is_mednext_state_dict(state_dict):
+            state_dict.pop("dummy_tensor", None)
+            return _published(mednext.MedNeXt, mednext.widths_from_state_dict,
+                              state_dict, affinity_mode, width_multiplier,
+                              device, dtype)
     if fold_bn is None:
         fold_bn = dtype == torch.bfloat16
     kw = dict(
@@ -150,20 +163,21 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
     return ModelRunner(module)
 
 
-def _load_swin_unetr(state_dict, affinity_mode, device, dtype,
-                     width_multiplier):
-    """The Swin UNETR runner of a MONAI-keyed state dict (strict)."""
+def _published(cls, widths_of, state_dict, affinity_mode, width_multiplier,
+               device, dtype):
+    """The runner of a ``cls`` checkpoint that gives its own widths
+    (``widths_of(state_dict)``), loaded strictly."""
     if width_multiplier != 1:
         raise ValueError(
-            f"width_multiplier={width_multiplier}: a SwinUNETR checkpoint "
-            "gives its own widths; pass 1")
-    widths = swin_unetr.widths_from_state_dict(state_dict)
+            f"width_multiplier={width_multiplier}: a {cls.__name__} "
+            "checkpoint gives its own widths; pass 1")
+    widths = widths_of(state_dict)
     want = 3 if affinity_mode else 1
     if widths["out_channels"] != want:
         raise ValueError(
             f"checkpoint has {widths['out_channels']} output channels, "
             f"affinity_mode={affinity_mode} needs {want}")
-    module = swin_unetr.SwinUNETR(**widths)
+    module = cls(**widths)
     module.load_state_dict(state_dict, strict=True)
     return ModelRunner(module.to(device=device, dtype=dtype))
 

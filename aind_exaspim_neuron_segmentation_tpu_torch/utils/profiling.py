@@ -40,6 +40,23 @@ metric (``benchmark/metrics/``) that reads each:
     by the (window, head, patch) triples it attended -- the tests, against
     ``benchmark/counts/swinunetr.py``;
 
+* ``models.mednext.MedNeXt``'s forward, once per batch of patches:
+
+  - ``mednext.encoder``: the stem, the encoder stages, the down blocks and
+    the bottleneck -- none (it holds the three spans below);
+  - ``mednext.decoder``: the up blocks, the skip adds, the decoder stages
+    and ``out_0`` -- none;
+  - ``mednext.dwconv``: each block's depthwise conv (stride 1, stride 2
+    or transposed, by the routes of ``ops.depthwise``) --
+    ``dwconv_roofline.mednext``;
+  - ``mednext.norm``: each block's per-channel GroupNorm --
+    ``norm_roofline.mednext``;
+  - ``mednext.mlp``: each block's ``conv2 -> GELU -> conv3`` --
+    ``mlp_roofline.mednext``;
+  - the counter ``MedNeXt.block_patches``, which the forward increments
+    by (blocks run) x (patches in the batch), 62 a patch at MedNeXt-L's
+    block counts -- the tests, against ``benchmark/counts/mednext.py``;
+
 * ``models.unet3d.UNet3D``'s forward, once per batch of patches: the
   counter ``UNet3D.ndhwc_forwards``, which the forward increments when
   every conv took an NDHWC (channels-last) input, as on a card behind

@@ -1,0 +1,21 @@
+"""Whole-step model FLOP utilization of MedNeXt's predict, % of the bf16
+peak.
+
+The FLOPs of one real patch's forward as the architecture counts them
+(every conv and transposed conv: the stem, the depthwise convs, the MLPs'
+``1^3`` convs, the residual convs and the output conv), times the real
+patches of the traced window's finished blocks, over the window, over the
+card's dense bf16 peak.
+"""
+
+from benchmark import readers
+
+
+def read(rec):
+    """Useful FLOP/s over the peak."""
+    t = readers.traced(rec)
+    if t is None or rec["peaks"] is None:
+        return None
+    flops = readers.model(rec).forward_flops(rec["cfg"], "predict") * \
+        readers.real_patches(rec) * rec["counters"]["blocks"]
+    return 100.0 * flops / t.window_s / rec["peaks"]["bf16_flops_s"]

@@ -712,3 +712,83 @@ def test_predict_on_card_runs_every_batch_ndhwc(cuda):
                       overlap=(32,) * 3, trim=8, batch_size=16,
                       verbose=False)
     assert UNet3D.ndhwc_forwards - before == 4
+
+
+@pytest.mark.gpu
+def test_mednext_bf16_forward_on_card_within_the_cell_limits(cuda):
+    """MedNeXt-L k5 at its published widths (32 channels, ``exp_r`` and
+    block counts 3-4-8-8-8-8-8-4-3), built by ``load_model`` from a
+    MedNeXt-keyed checkpoint of seeded weights, bf16 on the card: 4
+    normalized 128^3 tube patches, whose affinities' central 112^3 (trim
+    8) lie within the limits of ``mednext_affinity_infer`` of the plain
+    float32 reference's (TF32 off); the block counter counts 62 a
+    patch."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import (
+        MedNeXt,
+    )
+    from benchmark import harness, inputs
+    from benchmark.models import mednext as arch
+
+    cfg = harness.load_json("configs", "mednext_affinity_infer.json")
+    params = arch.weights(cfg, 21, cuda, None)
+    runner = arch.runner(cfg, params, cuda)
+    assert runner.module.out_0.conv_out.weight.dtype == torch.bfloat16
+    block = inputs.tube_volume(21, 0, 256, 32, 4, 120, 350)[0]
+    img = normalize(np.minimum(block, 1000), percentiles=(1, 99.9))
+    x = torch.from_numpy(np.stack([
+        img[z:z + 128, y:y + 128, 64:192] for z in (0, 128) for y in (0, 96)
+    ])[:, None].astype(np.float32)).to(cuda)
+    before = MedNeXt.block_patches
+    with torch.inference_mode():
+        got = torch.sigmoid(runner.module(x, valid_trim=8).float())
+    assert MedNeXt.block_patches - before == 62 * 4
+    with torch.no_grad():
+        want = torch.cat([torch.sigmoid(arch.forward(params, part))
+                          for part in x.split(2)])
+    want = want[:, :, 8:-8, 8:-8, 8:-8]
+    fig = parity_line("MedNeXt-L k5 bf16 on the card vs float32 reference",
+                      got.cpu().numpy(), want.cpu().numpy())
+    limits = cfg["limits"]
+    assert fig["mae"] <= limits["aff_mae"], fig
+    assert fig["max_abs"] <= limits["aff_max_abs"], fig
+
+
+@pytest.mark.gpu
+def test_mednext_predict_on_card_keeps_every_block_ncdhw(cuda):
+    """``predict`` of a 256^3 block at the MedNeXt cell's grid (patch 128,
+    overlap 32, batch 9: 27 patches in 3 batches) feeds every block, norm
+    and MLP conv NCDHW maps and gets NCDHW maps back, the layout
+    ``load_model`` keeps on the card."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import (
+        MedNeXt,
+        MedNeXtBlock,
+    )
+    from benchmark import harness
+    from benchmark.models import mednext as arch
+
+    cfg = harness.load_json("configs", "mednext_affinity_infer.json")
+    runner = arch.runner(cfg, arch.weights(cfg, 22, cuda, None), cuda)
+    seen = []
+
+    def hook(module, args, out):
+        seen.append((type(module).__name__, args[0].is_contiguous(),
+                     out.is_contiguous()))
+
+    watched = [m for m in runner.module.modules()
+               if isinstance(m, (MedNeXtBlock, torch.nn.GroupNorm))
+               or (isinstance(m, torch.nn.Conv3d)
+                   and m.kernel_size == (1, 1, 1))]
+    handles = [m.register_forward_hook(hook) for m in watched]
+    vol = np.random.default_rng(22).uniform(0, 1500, (256,) * 3).astype(
+        np.float32)
+    before = MedNeXt.block_patches
+    try:
+        inference.predict(vol, runner, patch_shape=(128,) * 3,
+                          overlap=(32,) * 3, trim=8, batch_size=9,
+                          verbose=False)
+    finally:
+        for h in handles:
+            h.remove()
+    assert MedNeXt.block_patches - before == 62 * 27
+    assert len(seen) == 3 * len(watched)
+    assert all(a and b for _, a, b in seen)
