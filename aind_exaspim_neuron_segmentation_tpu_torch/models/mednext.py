@@ -36,16 +36,19 @@ checkpoint loads with a strict ``load_state_dict``; a training
 checkpoint's deep-supervision heads ``out_1`` .. ``out_4`` load too
 (``deep_supervision=True``) and never run.
 
-The stride-1 and the transposed depthwise convs run through
-:mod:`..ops.depthwise` (the same sums by faster torch routes on a card);
-the stride-2 one through ``conv1`` itself.
+Each block's depthwise conv (stride 1, stride 2 or transposed) runs
+through :mod:`..ops.depthwise` with ``conv1``'s weight and bias: the
+hand-written kernel on a card, the plain version on the CPU.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+# depthwise_conv3d and depthwise_conv_transpose3d are not called here; the
+# benchmark's walk of the model on ``meta`` still patches them by name
 from aind_exaspim_neuron_segmentation_tpu_torch.ops.depthwise import (
+    depthwise3d,
     depthwise_conv3d,
     depthwise_conv_transpose3d,
 )
@@ -84,13 +87,7 @@ class MedNeXtBlock(nn.Module):
     def forward(self, x):
         """The block's output."""
         with annotate("mednext.dwconv"):
-            if self.mode == "same":
-                y = depthwise_conv3d(x, self.conv1.weight, self.conv1.bias)
-            elif self.mode == "up":
-                y = depthwise_conv_transpose3d(x, self.conv1.weight,
-                                               self.conv1.bias)
-            else:
-                y = self.conv1(x)
+            y = depthwise3d(x, self.conv1.weight, self.conv1.bias, self.mode)
         with annotate("mednext.norm"):
             y = self.norm(y)
         with annotate("mednext.mlp"):
@@ -122,9 +119,9 @@ def _stage(c, exp_r, count, k):
 class MedNeXt(nn.Module):
     """MedNeXt over (N, in, D, H, W) volumes, logits out.
 
-    Activations run NCDHW on every device (on a card NDHWC ran the whole
-    forward 1.9x slower: cuDNN's depthwise kernels and the GroupNorm are
-    slower there) in the dtype of the parameters (bfloat16 on the GPU in
+    Activations run NCDHW on every device (the depthwise kernel takes
+    NCDHW maps; on a card PyTorch's GroupNorm is 5x slower NDHWC) in the
+    dtype of the parameters (bfloat16 on the GPU in
     production, float32 for parity); the logits come back in the dtype
     of the input. ``MedNeXt.block_patches`` counts (blocks run) x
     (patches in the batch) of every forward: 62 a patch at MedNeXt-L's

@@ -47,7 +47,7 @@ metric (``benchmark/metrics/``) that reads each:
   - ``mednext.decoder``: the up blocks, the skip adds, the decoder stages
     and ``out_0`` -- none;
   - ``mednext.dwconv``: each block's depthwise conv (stride 1, stride 2
-    or transposed, by the routes of ``ops.depthwise``) --
+    or transposed: one launch of ``ops.depthwise``'s kernel on a card) --
     ``dwconv_roofline.mednext``;
   - ``mednext.norm``: each block's per-channel GroupNorm --
     ``norm_roofline.mednext``;
@@ -56,6 +56,10 @@ metric (``benchmark/metrics/``) that reads each:
   - the counter ``MedNeXt.block_patches``, which the forward increments
     by (blocks run) x (patches in the batch), 62 a patch at MedNeXt-L's
     block counts -- the tests, against ``benchmark/counts/mednext.py``;
+  - the counter ``ops.depthwise.depthwise3d.launches``, which each launch
+    of the depthwise kernel increments, 62 a MedNeXt-L forward on a card
+    whatever the batch (none on the CPU) -- the card tests and
+    ``chip_smoke.py``;
 
 * ``models.unet3d.UNet3D``'s forward, once per batch of patches: the
   counter ``UNet3D.ndhwc_forwards``, which the forward increments when

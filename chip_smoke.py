@@ -15,7 +15,17 @@ Phases (any failure raises, and the script exits non-zero):
    main-path shape among them, each printed with the path it took
    (``vec 4`` or ``vec 1``, both required), and time it, the plain loop
    and the library call ``index_add_`` with CUDA events at two shapes:
-   the main path's batch and a strip of 16 patches along x;
+   the main path's batch and a strip of 16 patches along x; then build
+   the depthwise kernel (``csrc/depthwise3d.cu``) and, at each of
+   MedNeXt-L k5's 13 conv shapes and modes (batch 9), hold it in bf16
+   within one bf16 rounding of its plain version on the same bf16 values
+   and within bf16's rounding of torch's conv in float32, and in float32
+   (batch 1) within 1e-5 of its plain version, and time it beside its
+   bound (HBM bytes, or FLOPs at the bf16 tensor rate if slower), its
+   float32-FMA bound (the limit of its CUDA-core design), the plain
+   version and the library routes it replaced (``library_ms``); then a
+   MedNeXt-L through ``load_model`` predicts a 256^3 block at batch 9
+   (27 patches, 3 forwards) and counts 186 launches;
 3. the float32 forward on the card against the port's CPU forward
    (width 0.25, 32^3, TF32 off, max-abs <= 1e-4), and a small float32
    ``predict`` on the card against the CPU (MAE <= 1e-5);
@@ -172,9 +182,11 @@ import zipfile
 import numpy as np
 import torch
 
-# H100 SXM data-sheet peaks: HBM bytes/s and float32 (non-tensor) FLOP/s.
+# H100 SXM data-sheet peaks: HBM bytes/s, float32 (non-tensor) FLOP/s and
+# dense bf16 tensor-core FLOP/s.
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
+BF16_OPS_PER_S = 989e12
 # ~50 ms of device clock cycles, longer than the host takes to queue a
 # timed run of K1, its plain loop or index_add_
 SPIN_CYCLES = 100_000_000
@@ -187,6 +199,7 @@ K1_REPLACES = (
     "aind_exaspim_neuron_segmentation_tpu/ops/experimental/"
     "pallas_stitch.py:95"
 )
+DW_SOURCE = f"{PORT}/csrc/depthwise3d.cu"
 
 
 def check(cond, msg):
@@ -416,6 +429,226 @@ def phase_k1(scatter, dev, card):
     check(vec == 4, f"strip took vec {vec}")
     k1_time(scatter, dev, "strip", strip, want, card)
     return dict(max_abs_err=max(max_err, err), **timed)
+
+
+# MedNeXt-L at 128^3: the published block counts; stage i has 32 * 2^i
+# channels on maps of 128 / 2^i voxels an axis
+MEDNEXT_COUNTS = (3, 4, 8, 8, 8, 8, 8, 4, 3)
+DW_BATCH = 9
+DW_K = 5
+
+
+def dw_shapes():
+    """(mode, channels, input side, convs a forward) of every depthwise
+    conv shape of a MedNeXt-L k5 forward at 128^3, in order of mode."""
+    c = [32 * 2 ** i for i in range(5)]
+    side = [128 // 2 ** i for i in range(5)]
+    same = [MEDNEXT_COUNTS[i] + MEDNEXT_COUNTS[8 - i] if i < 4
+            else MEDNEXT_COUNTS[4] for i in range(5)]
+    return ([("same", c[i], side[i], same[i]) for i in range(5)]
+            + [("down", c[i], side[i], 1) for i in range(4)]
+            + [("up", c[i + 1], side[i + 1], 1) for i in reversed(range(4))])
+
+
+def dw_library(x, weight, bias, mode):
+    """The library routes the port ran these convs by before the kernel,
+    timed here as its yardstick only: stride 1 on maps 32+ deep (a
+    multiple of 16) as a banded grouped 2D conv over 16-plane depth tiles,
+    other stride-1 and stride-2 convs ATen's ``conv_depthwise3d``, the
+    transposed conv as 8 stride-1 phases."""
+    import torch.nn.functional as F
+
+    n, c, d, h, w = x.shape
+    k = weight.shape[-1]
+    p = k // 2
+    if mode == "down" or (mode == "same" and (d < 32 or d % 16)):
+        return F.conv3d(x, weight, bias, stride=1 + (mode == "down"),
+                        padding=p, groups=c)
+    if mode == "same":
+        tile = 16
+        band = weight.new_zeros(c, tile, tile + k - 1, k, k)
+        t = torch.arange(tile, device=weight.device)
+        for kd in range(k):
+            band[:, t, t + kd] = weight[:, 0, kd, None]
+        tiles = F.pad(x, (0, 0, 0, 0, p, p)).unfold(2, tile + 2 * p, tile)
+        tiles = tiles.permute(0, 2, 1, 5, 3, 4).reshape(
+            n * (d // tile), c * (tile + 2 * p), h, w)
+        y = F.conv2d(tiles.contiguous(memory_format=torch.channels_last),
+                     band.view(c * tile, tile + k - 1, k, k).contiguous(
+                         memory_format=torch.channels_last),
+                     bias.repeat_interleave(tile), padding=p, groups=c)
+        y = y.view(n, d // tile, c, tile, h, w).permute(0, 2, 1, 3, 4, 5)
+        return y.reshape(n, c, d, h, w)
+    y = x.new_empty((n, c, 2 * d - 1, 2 * h - 1, 2 * w - 1))
+    phases = []
+    for ph in (0, 1):
+        taps = [t for t in reversed(range(k)) if (t - ph - p) % 2 == 0]
+        before = (len(taps) - 1) - (ph + p - taps[-1]) // 2
+        phases.append((taps, (before, len(taps) - 1 - before)))
+    for pz in (0, 1):
+        for py in (0, 1):
+            for px in (0, 1):
+                (tz, az), (ty, ay), (tx, ax) = (phases[pz], phases[py],
+                                                phases[px])
+                wt = weight[:, :, tz][:, :, :, ty][:, :, :, :, tx]
+                part = F.conv3d(F.pad(x, ax + ay + az), wt, bias, groups=c)
+                out = y[:, :, pz::2, py::2, px::2]
+                out.copy_(part[:, :, :out.shape[2], :out.shape[3],
+                               :out.shape[4]])
+    return y
+
+
+def dw_bounds_ms(mode, c, side, batch=DW_BATCH, k=DW_K):
+    """Times of one depthwise conv of a batch on this card: its bytes (the
+    map read, the output written, the weights and bias read, bf16) at the
+    HBM rate, and its multiply-adds (the taps times the output voxels; a
+    transposed conv's times its input voxels, as the benchmark's counts
+    take them) at the dense bf16 tensor-core rate and as float32 FMAs on
+    the CUDA cores. The card's least time is the larger of the first two
+    (the bytes at every MedNeXt-L shape); the third is the least time of
+    a kernel that, like this one, sums on the CUDA cores."""
+    vin = side ** 3
+    vout = {"same": side, "down": side // 2, "up": 2 * side - 1}[mode] ** 3
+    moved = 2 * (batch * c * (vin + vout) + c * (k ** 3 + 1))
+    flops = 2 * batch * c * k ** 3 * (vin if mode == "up" else vout)
+    return (moved / HBM_BYTES_PER_S * 1e3, flops / BF16_OPS_PER_S * 1e3,
+            flops / FP32_OPS_PER_S * 1e3)
+
+
+@tf32_off()
+def phase_depthwise(depthwise, inference, dev, card):
+    """The depthwise kernel (``csrc/depthwise3d.cu``) at every MedNeXt-L
+    k5 shape and mode, batch 9: bf16 within one bf16 rounding of the plain
+    version on the same bf16 values and within bf16's rounding of torch's
+    conv of them in float32 (TF32 off), float32 at batch 1 against the
+    plain version, then timed beside its bounds, the plain version and
+    the library routes it replaced; then the MedNeXt cell's path, a
+    MedNeXt-keyed checkpoint through ``load_model`` and ``predict`` of a
+    256^3 block at batch 9, counts 62 launches a forward."""
+    from io import BytesIO
+
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import (
+        MedNeXt,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(22)
+    rows, total = [], dict(ms=0.0, bytes_ms=0.0, tensor_ms=0.0, fma_ms=0.0,
+                           plain_ms=0.0, library_ms=0.0)
+    max_rel = 0.0
+    for mode, c, side, count in dw_shapes():
+        x = torch.randn((DW_BATCH, c) + (side,) * 3, generator=gen,
+                        device=dev)
+        w = torch.randn((c, 1) + (DW_K,) * 3, generator=gen, device=dev)
+        w /= DW_K ** 1.5
+        b = torch.randn(c, generator=gen, device=dev)
+        xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+        got = depthwise.depthwise3d(xb, wb, bb, mode).float()
+        p = DW_K // 2
+        if mode == "up":
+            want = F.conv_transpose3d(xb.float(), wb.float(), bb.float(),
+                                      stride=2, padding=p, groups=c)
+        else:
+            want = F.conv3d(xb.float(), wb.float(), bb.float(),
+                            stride=1 + (mode == "down"), padding=p, groups=c)
+        check(got.shape == want.shape,
+              f"depthwise {mode} {c} x {side}^3: {tuple(got.shape)}")
+        gap = (got - want).abs()
+        scale = float(want.abs().max())
+        tol = 2.0 ** -8 * want.abs() + 1e-4 * scale
+        check(bool((gap <= tol).all()),
+              f"depthwise bf16 {mode} {c} x {side}^3 off by "
+              f"{float(gap.max()):.3e} (scale {scale:.3e})")
+        rel_bf16 = float((gap / (want.abs() + 1e-3 * scale)).max())
+        del want, gap, tol
+        plain = depthwise.depthwise3d_reference(xb, wb, bb, mode).float()
+        gap = (got - plain).abs()
+        check(bool((gap <= 2.0 ** -7 * plain.abs() + 1e-5 * scale).all()),
+              f"depthwise bf16 {mode} {c} x {side}^3 off its plain version "
+              f"on the same bf16 values by {float(gap.max()):.3e} (scale "
+              f"{scale:.3e})")
+        ulps_plain = float((gap / (2.0 ** -7 * plain.abs()
+                                   + 1e-5 * scale)).max())
+        del got, plain, gap
+        x1 = x[:1].contiguous()
+        got32 = depthwise.depthwise3d(x1, w, b, mode)
+        plain32 = depthwise.depthwise3d_reference(x1, w, b, mode)
+        err32 = float((got32 - plain32).abs().max())
+        rel32 = err32 / float(plain32.abs().max())
+        check(rel32 <= 1e-5, f"depthwise float32 {mode} {c} x {side}^3 off "
+              f"the plain version by {err32:.3e} ({rel32:.3e} of its max)")
+        max_rel = max(max_rel, rel32)
+        del got32, plain32, x1
+        kernel_ms, host_ms = cuda_ms(
+            lambda: depthwise.depthwise3d(xb, wb, bb, mode))
+        library_ms, _ = cuda_ms(lambda: dw_library(xb, wb, bb, mode),
+                                iters=5, warmup=1)
+        plain_ms, _ = cuda_ms(
+            lambda: depthwise.depthwise3d_reference(xb, wb, bb, mode),
+            iters=2, warmup=1)
+        bytes_ms, tensor_ms, fma_ms = dw_bounds_ms(mode, c, side)
+        bound_ms = max(bytes_ms, tensor_ms)
+        row = dict(mode=mode, channels=c, side=side, convs=count,
+                   ms=kernel_ms, host_ms=host_ms, bytes_ms=bytes_ms,
+                   tensor_ms=tensor_ms, fma_ms=fma_ms, plain_ms=plain_ms,
+                   library_ms=library_ms, max_rel_bf16=rel_bf16,
+                   max_ulps_bf16_plain=ulps_plain, max_rel_f32=rel32)
+        rows.append(row)
+        for key in total:
+            total[key] += count * row[key]
+        print(f"depthwise {mode} {c} x {side}^3, batch {DW_BATCH}, bf16: "
+              f"kernel {kernel_ms:.4f} ms ({host_ms:.4f} ms host), bound "
+              f"{bound_ms:.4f} ({100 * bound_ms / kernel_ms:.1f} % of it; "
+              f"bytes {bytes_ms:.4f}, bf16 tensor FLOPs {tensor_ms:.4f}), "
+              f"CUDA-core fp32-FMA bound {fma_ms:.4f} "
+              f"({100 * fma_ms / kernel_ms:.1f} % of it), plain "
+              f"{plain_ms:.3f}, library {library_ms:.4f} "
+              f"({library_ms / kernel_ms:.2f}x); bf16 within "
+              f"{ulps_plain:.2f} of a bf16 rounding of the plain version on "
+              f"the same values, within bf16 rounding of float32 (worst "
+              f"{rel_bf16:.2e} relative), float32 {rel32:.2e} of the plain "
+              f"version; x {count} a forward [{card}]", flush=True)
+        del x, w, b, xb, wb, bb
+        torch.cuda.empty_cache()
+    bound = max(total["bytes_ms"], total["tensor_ms"])
+    print(f"depthwise, a batch-{DW_BATCH} MedNeXt-L k5 forward's 62 convs: "
+          f"kernel {total['ms']:.3f} ms, bound {bound:.3f} "
+          f"({100 * bound / total['ms']:.1f} % of it; bytes "
+          f"{total['bytes_ms']:.3f}, bf16 tensor FLOPs "
+          f"{total['tensor_ms']:.3f}), CUDA-core fp32-FMA bound "
+          f"{total['fma_ms']:.3f} ({100 * total['fma_ms'] / total['ms']:.1f}"
+          f" % of it), plain {total['plain_ms']:.1f}, library routes "
+          f"{total['library_ms']:.3f} [{card}]", flush=True)
+    buf = BytesIO()
+    torch.save(MedNeXt().state_dict(), buf)
+    buf.seek(0)
+    runner = inference.load_model(buf, affinity_mode=True, device=dev,
+                                  dtype=torch.bfloat16)
+    check(isinstance(runner.module, MedNeXt),
+          f"load_model built {type(runner.module).__name__}")
+    vol = np.random.default_rng(22).uniform(0, 1500, (256,) * 3).astype(
+        np.float32)
+    patches = MedNeXt.block_patches
+    before = depthwise.depthwise3d.launches
+    aff = inference.predict(vol, runner, patch_shape=(128,) * 3,
+                            overlap=(32,) * 3, trim=8, batch_size=DW_BATCH,
+                            verbose=False)
+    launches = depthwise.depthwise3d.launches - before
+    forwards = (MedNeXt.block_patches - patches) // (62 * DW_BATCH)
+    check(MedNeXt.block_patches - patches == 62 * 27,
+          f"predict ran {MedNeXt.block_patches - patches} block patches")
+    check(launches == 62 * forwards == 186,
+          f"a 256^3 MedNeXt-L predict at batch {DW_BATCH} launched the "
+          f"kernel {launches} times in {forwards} forwards")
+    check(bool(np.isfinite(aff).all()), "MedNeXt-L predict not finite")
+    print(f"depthwise: load_model (bf16) of a MedNeXt-L k5 checkpoint and "
+          f"predict of a 256^3 block at batch {DW_BATCH} (27 patches, "
+          f"{forwards} forwards) launched the kernel {launches} times, 62 "
+          f"a forward [{card}]")
+    del runner, vol, aff
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, forwards=forwards,
+                max_rel_f32=max_rel, bound_ms=bound, **total)
 
 
 @tf32_off()
@@ -2220,6 +2453,7 @@ def main(argv):
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
         augment_device,
+        depthwise,
         scatter,
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
@@ -2240,6 +2474,11 @@ def main(argv):
     print(f"K1 built and loaded in {time.perf_counter() - t0:.1f} s")
 
     k1 = phase_k1(scatter, dev, card)
+    t0 = time.perf_counter()
+    cuda_build.load("depthwise3d")
+    print(f"depthwise kernel built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    dw = phase_depthwise(depthwise, inference, dev, card)
     phase_parity(inference, dev)
     where = f"{card}; {os.cpu_count()} CPUs"
     with tempfile.TemporaryDirectory() as tmp:
@@ -2284,6 +2523,21 @@ def main(argv):
         max_abs_err=k1["max_abs_err"], ms=k1["ms"], kernel_ms=k1["ms"],
         plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
         bound_by=k1["bound_by"], library_ms=k1["library_ms"],
+    ), dict(
+        name="depthwise3d", route="cuda", source=DW_SOURCE,
+        replaces="none (the JAX package has no MedNeXt)",
+        launches=dw["launches"],
+        launches_on=(f"predict of a 256^3 block at batch {DW_BATCH}, "
+                     f"{dw['forwards']} MedNeXt-L forwards"),
+        max_rel_err=dw["max_rel_f32"], ms=dw["ms"], kernel_ms=dw["ms"],
+        plain_ms=dw["plain_ms"], bound_ms=dw["bound_ms"],
+        bound_by=("HBM bytes" if dw["bytes_ms"] >= dw["tensor_ms"]
+                  else "bf16 tensor FLOPs"),
+        bytes_ms=dw["bytes_ms"], tensor_ms=dw["tensor_ms"],
+        fma_bound_ms=dw["fma_ms"],
+        fma_bound_by=("float32 FMAs on the CUDA cores: the limit of this "
+                      "CUDA-core design"),
+        library_ms=dw["library_ms"], shapes=dw["rows"],
     )]
     print(f"K1 launches: {launches} on the main path (phase 4), "
           f"{lazy_launches} on the lazy main path (phase 9), "

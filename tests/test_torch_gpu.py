@@ -36,11 +36,13 @@ from aind_exaspim_neuron_segmentation_tpu_torch.models.unet3d import (
     is_ndhwc,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
+    depthwise,
     predigest,
     prep,
     scatter,
     stitch,
 )
+from benchmark.counts import mednext as mednext_counts
 
 K1_CASES = ("pallas_overlaps", "pallas_untouched", "random_overlapping",
             "grid_rows_aligned")
@@ -758,7 +760,8 @@ def test_mednext_predict_on_card_keeps_every_block_ncdhw(cuda):
     """``predict`` of a 256^3 block at the MedNeXt cell's grid (patch 128,
     overlap 32, batch 9: 27 patches in 3 batches) feeds every block, norm
     and MLP conv NCDHW maps and gets NCDHW maps back, the layout
-    ``load_model`` keeps on the card."""
+    ``load_model`` keeps on the card; each of its 3 forwards runs its 62
+    depthwise convs as launches of the kernel."""
     from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import (
         MedNeXt,
         MedNeXtBlock,
@@ -782,6 +785,7 @@ def test_mednext_predict_on_card_keeps_every_block_ncdhw(cuda):
     vol = np.random.default_rng(22).uniform(0, 1500, (256,) * 3).astype(
         np.float32)
     before = MedNeXt.block_patches
+    launches = depthwise.depthwise3d.launches
     try:
         inference.predict(vol, runner, patch_shape=(128,) * 3,
                           overlap=(32,) * 3, trim=8, batch_size=9,
@@ -790,5 +794,143 @@ def test_mednext_predict_on_card_keeps_every_block_ncdhw(cuda):
         for h in handles:
             h.remove()
     assert MedNeXt.block_patches - before == 62 * 27
+    assert depthwise.depthwise3d.launches - launches == 62 * 3
     assert len(seen) == 3 * len(watched)
     assert all(a and b for _, a, b in seen)
+
+
+def mednext_dw_shapes():
+    """(mode, channels, input side) of every depthwise conv shape of a
+    MedNeXt-L forward at 128^3, from the benchmark's published geometry."""
+    shapes = []
+    for b in mednext_counts.blocks(128):
+        key = (b["mode"], b["cin"], round(b["vin"] ** (1 / 3)))
+        if key not in shapes:
+            shapes.append(key)
+    return shapes
+
+
+def dw_inputs(shape, k, device, seed=0):
+    """Seeded float32 x, weight (scaled as a k^3 tap sum) and bias."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    c = shape[1]
+    return (torch.randn(shape, generator=gen, device=device),
+            torch.randn((c, 1, k, k, k), generator=gen, device=device)
+            / k ** 1.5,
+            torch.randn((c,), generator=gen, device=device))
+
+
+def torch_depthwise(x, w, b, mode):
+    """torch's own conv of the mode, in the inputs' dtype."""
+    p, c = w.shape[-1] // 2, x.shape[1]
+    if mode == "up":
+        return torch.nn.functional.conv_transpose3d(
+            x, w, b, stride=2, padding=p, groups=c)
+    return torch.nn.functional.conv3d(x, w, b, stride=1 + (mode == "down"),
+                                      padding=p, groups=c)
+
+
+def check_depthwise_kernel(x, w, b, mode):
+    """The kernel in float32 within 1e-5 of the plain version's largest
+    output; in bf16 within half a bf16 rounding of torch's conv of the
+    same bf16 values in float32 (TF32 off), and no farther from it than
+    torch's own bf16 conv (cuDNN's transposed conv is off by two bf16
+    ulps at places); one launch each."""
+    before = depthwise.depthwise3d.launches
+    got = depthwise.depthwise3d(x, w, b, mode)
+    want = depthwise.depthwise3d_reference(x, w, b, mode)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-5 * scale
+    del got, want
+    xb, wb, bb = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    got = depthwise.depthwise3d(xb, wb, bb, mode)
+    assert got.dtype == torch.bfloat16
+    want = torch_depthwise(xb.float(), wb.float(), bb.float(), mode)
+    gap = (got.float() - want).abs()
+    del got
+    scale = float(want.abs().max())
+    assert bool((gap <= 2.0 ** -8 * want.abs() + 1e-5 * scale).all()), \
+        float(gap.max())
+    lib = float((torch_depthwise(xb, wb, bb, mode).float() - want).abs()
+                .max())
+    assert float(gap.max()) <= max(lib, (2.0 ** -8 + 1e-5) * scale)
+    assert depthwise.depthwise3d.launches - before == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 9])
+@pytest.mark.parametrize("mode,channels,side", mednext_dw_shapes(),
+                         ids=lambda v: str(v))
+@torch.no_grad()
+def test_depthwise_kernel_at_every_mednext_shape(cuda, no_tf32, mode,
+                                                 channels, side, batch):
+    """The depthwise kernel at each of MedNeXt-L k5's 13 conv shapes
+    (stride 1, stride 2 and transposed) at batch 1 and 9."""
+    x, w, b = dw_inputs((batch, channels) + (side,) * 3, 5, cuda)
+    check_depthwise_kernel(x, w, b, mode)
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 3, 7, 9, 11), (1, 2, 6, 5, 136)],
+                         ids=["odd", "two_tiles_wide"])
+@pytest.mark.parametrize("mode", ["same", "down", "up"])
+@pytest.mark.parametrize("k", [3, 5, 7])
+@torch.no_grad()
+def test_depthwise_kernel_every_k_and_edge(cuda, no_tf32, k, mode, shape):
+    """k = 3, 5, 7 in each mode on odd sides (rows copied element by
+    element) and on a map wider than one tile of 128 columns."""
+    check_depthwise_kernel(*dw_inputs(shape, k, cuda, seed=k), mode)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [1, 3])
+def test_mednext_forward_launches_the_kernel_62_times(cuda, batch):
+    """Every depthwise conv of a MedNeXt-L forward on the card is one
+    launch of the kernel, whatever the batch."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import (
+        MedNeXt,
+    )
+
+    model = MedNeXt().to(cuda, torch.bfloat16).eval()
+    x = torch.randn((batch, 1, 32, 32, 32), device=cuda,
+                    dtype=torch.bfloat16)
+    before = depthwise.depthwise3d.launches
+    with torch.inference_mode():
+        out = model(x)
+    assert depthwise.depthwise3d.launches - before == 62
+    assert out.shape == (batch, 3, 32, 32, 32)
+    assert bool(torch.isfinite(out).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["float16", "float64", "mixed",
+                                 "not_contiguous"])
+def test_depthwise_kernel_refuses_what_it_does_not_take(cuda, bad):
+    """The wrapper raises on a dtype the kernel lacks, on mixed dtypes and
+    on a non-contiguous map, and launches nothing."""
+    x, w, b = dw_inputs((1, 4, 8, 8, 8), 5, cuda)
+    if bad == "mixed":
+        w = w.bfloat16()
+    elif bad == "not_contiguous":
+        x = x.transpose(3, 4)
+    else:
+        x, w, b = (t.to(getattr(torch, bad)) for t in (x, w, b))
+    before = depthwise.depthwise3d.launches
+    with pytest.raises(ValueError if bad == "not_contiguous" else TypeError):
+        depthwise.depthwise3d(x, w, b, "same")
+    assert depthwise.depthwise3d.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["same", "down", "up"])
+def test_depthwise_kernel_counts_only_what_it_launched(cuda, mode):
+    """An empty batch returns an empty map of the mode's shape and counts
+    no launch."""
+    x, w, b = dw_inputs((0, 4, 6, 6, 6), 5, cuda)
+    before = depthwise.depthwise3d.launches
+    got = depthwise.depthwise3d(x.bfloat16(), w.bfloat16(), b.bfloat16(),
+                                mode)
+    assert got.shape == (0, 4) + (depthwise.output_side(mode, 6),) * 3
+    assert depthwise.depthwise3d.launches == before

@@ -6,8 +6,9 @@ seeded weights at MAE <= 1e-5 (the repo's parity bar) at a 32^3 patch,
 published ``exp_r``, at kernels 3 and 5: the whole forward and each kind
 of block. The up block's one-voxel pad at the low end and the
 per-channel GroupNorm are each knocked out of the port in turn, and
-parity then fails. The depthwise routes of ``ops/depthwise.py`` equal
-torch's own convs; ``load_model`` builds the model from a MedNeXt-keyed
+parity then fails. The plain version of ``ops/depthwise.py`` (the
+kernel's CPU path) equals torch's own convs in each mode, and a CPU
+forward never loads the kernel; ``load_model`` builds the model from a MedNeXt-keyed
 checkpoint (strict, with or without ``dummy_tensor`` and the
 deep-supervision heads) and still builds the UNet3D and the Swin UNETR,
 bit for bit, from theirs; ``predict`` runs it against the reference's
@@ -23,7 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from aind_exaspim_neuron_segmentation_tpu_torch import inference
+from aind_exaspim_neuron_segmentation_tpu_torch import cuda_build, inference
 from aind_exaspim_neuron_segmentation_tpu_torch.models import mednext
 from aind_exaspim_neuron_segmentation_tpu_torch.models.mednext import MedNeXt
 from aind_exaspim_neuron_segmentation_tpu_torch.models.swin_unetr import (
@@ -159,19 +160,26 @@ def test_group_norm_is_per_channel_and_affine(runner, params, norm):
     assert (gap <= 1e-5) if norm == "per_channel" else (gap > 1e-3), gap
 
 
+def _dw_case(k, shape):
+    gen = torch.Generator().manual_seed(k)
+    c = shape[1]
+    return (torch.randn(shape, generator=gen),
+            torch.randn((c, 1, k, k, k), generator=gen),
+            torch.randn((c,), generator=gen))
+
+
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("shape", [(2, 3, 32, 8, 6), (1, 2, 48, 5, 7),
                                    (2, 3, 16, 9, 9)],
                          ids=["banded", "banded_3_tiles", "plain"])
 @torch.no_grad()
 def test_depthwise_route_equals_conv3d(k, shape):
-    gen = torch.Generator().manual_seed(k)
-    c = shape[1]
-    x = torch.randn(shape, generator=gen)
-    w = torch.randn((c, 1, k, k, k), generator=gen)
-    b = torch.randn((c,), generator=gen)
-    got = depthwise.depthwise_conv3d(x, w, b)
-    want = F.conv3d(x, w, b, padding=k // 2, groups=c)
+    """The plain version of the stride-1 depthwise conv (the kernel's CPU
+    path and oracle; the ids name the shapes of the library routes it
+    replaced) equals torch's conv."""
+    x, w, b = _dw_case(k, shape)
+    got = depthwise.depthwise3d_reference(x, w, b, "same")
+    want = F.conv3d(x, w, b, padding=k // 2, groups=shape[1])
     assert got.shape == want.shape and got.is_contiguous()
     assert float((got - want).abs().max()) <= 1e-4
 
@@ -181,15 +189,70 @@ def test_depthwise_route_equals_conv3d(k, shape):
                          ids=["even", "mixed", "tiny"])
 @torch.no_grad()
 def test_transposed_depthwise_route_equals_conv_transpose3d(k, side):
-    gen = torch.Generator().manual_seed(k)
-    c = 3
-    x = torch.randn((2, c) + side, generator=gen)
-    w = torch.randn((c, 1, k, k, k), generator=gen)
-    b = torch.randn((c,), generator=gen)
-    got = depthwise.depthwise_conv_transpose3d(x, w, b)
-    want = F.conv_transpose3d(x, w, b, stride=2, padding=k // 2, groups=c)
-    assert got.shape == want.shape == (2, c) + tuple(2 * s - 1 for s in side)
+    """The plain version of the transposed conv, by its parity rule."""
+    x, w, b = _dw_case(k, (2, 3) + side)
+    got = depthwise.depthwise3d_reference(x, w, b, "up")
+    want = F.conv_transpose3d(x, w, b, stride=2, padding=k // 2, groups=3)
+    assert got.shape == want.shape == (2, 3) + tuple(2 * s - 1 for s in side)
     assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("k", [3, 5, 7])
+@pytest.mark.parametrize("side", [(8, 6, 4), (7, 5, 9), (3, 1, 2)],
+                         ids=["even", "odd", "tiny"])
+@torch.no_grad()
+def test_strided_depthwise_equals_conv3d_stride2(k, side):
+    """The plain version of a down block's stride-2 conv."""
+    x, w, b = _dw_case(k, (2, 3) + side)
+    got = depthwise.depthwise3d_reference(x, w, b, "down")
+    want = F.conv3d(x, w, b, stride=2, padding=k // 2, groups=3)
+    assert got.shape == want.shape == (2, 3) + tuple(
+        depthwise.output_side("down", s) for s in side)
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["same", "down", "up"])
+def test_meta_depthwise_is_torch_conv_of_the_same_shapes(mode):
+    """On ``meta`` (shapes only) the wrapper is torch's conv, so a walk of
+    the model counts each depthwise conv as the conv it is."""
+    x = torch.empty(2, 4, 9, 8, 7, device="meta")
+    w = torch.empty(4, 1, 5, 5, 5, device="meta")
+    got = depthwise.depthwise3d(x, w, torch.empty(4, device="meta"), mode)
+    assert got.device.type == "meta"
+    assert got.shape[2:] == tuple(depthwise.output_side(mode, s)
+                                  for s in (9, 8, 7))
+
+
+@pytest.mark.parametrize("bad", ["mode", "k", "weight", "bias", "devices"])
+def test_depthwise_rejects_what_the_kernel_does_not_take(bad):
+    x, w, b = _dw_case(5, (1, 2, 4, 4, 4))
+    mode = "same"
+    if bad == "mode":
+        mode = "sideways"
+    elif bad == "k":
+        w = torch.zeros(2, 1, 4, 4, 4)
+    elif bad == "weight":
+        w = torch.zeros(3, 1, 5, 5, 5)
+    elif bad == "bias":
+        b = torch.zeros(3)
+    else:
+        b = b.to("meta")
+    with pytest.raises(ValueError):
+        depthwise.depthwise3d(x, w, b, mode)
+
+
+@torch.no_grad()
+def test_cpu_forward_never_loads_the_kernel_library(runner, monkeypatch):
+    """A MedNeXt forward on the CPU runs the plain version: it neither
+    builds nor loads ``csrc/depthwise3d.cu`` and launches nothing."""
+    def refuse(name="scatter_blend"):
+        raise AssertionError(f"loaded the {name} library on the CPU")
+
+    monkeypatch.setattr(cuda_build, "load", refuse)
+    before = depthwise.depthwise3d.launches
+    got = runner.module(_patches(1))
+    assert got.shape == (1, 3, PATCH, PATCH, PATCH)
+    assert depthwise.depthwise3d.launches == before
 
 
 def _state(params, extra=()):
@@ -281,24 +344,10 @@ def test_the_block_counter_counts_what_the_counts_say(runner):
         3, COUNTS) == 3 * (sum(COUNTS) + 8)
 
 
-def plain_routes(monkeypatch):
-    """Put torch's own depthwise convs in the place of the routes of
-    ``ops/depthwise.py``, whose banded and phased convs count other
-    FLOPs for the same sums."""
-    monkeypatch.setattr(mednext, "depthwise_conv3d", lambda x, w, b: F.conv3d(
-        x, w, b, padding=w.shape[-1] // 2, groups=x.shape[1]))
-    monkeypatch.setattr(
-        mednext, "depthwise_conv_transpose3d",
-        lambda x, w, b: F.conv_transpose3d(x, w, b, stride=2,
-                                           padding=w.shape[-1] // 2,
-                                           groups=x.shape[1]))
-
-
 @pytest.mark.parametrize("patch", [128, 96])
-def test_flops_match_the_flop_counter_on_meta(monkeypatch, patch):
-    """The published model's FLOPs: the port's forward with torch's own
-    depthwise convs, and the plain reference's, on ``meta``."""
-    plain_routes(monkeypatch)
+def test_flops_match_the_flop_counter_on_meta(patch):
+    """The published model's FLOPs: the port's forward (its depthwise
+    convs torch's own on ``meta``), and the plain reference's."""
     model = MedNeXt().to("meta")
     assert sum(p.numel() for p in model.parameters()) == 62_992_931
     x = torch.empty(1, 1, patch, patch, patch, device="meta")
