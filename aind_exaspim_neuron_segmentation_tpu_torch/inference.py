@@ -48,6 +48,7 @@ from aind_exaspim_neuron_segmentation_tpu_torch.io.zarr_lite import (
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models import (
     mednext,
+    segmamba,
     swin_unetr,
 )
 from aind_exaspim_neuron_segmentation_tpu_torch.models.convert import (
@@ -68,8 +69,8 @@ from aind_exaspim_neuron_segmentation_tpu_torch.utils.profiling import (
 
 class ModelRunner:
     """A model bound for inference (eval mode, fixed device): a UNet3D, a
-    Swin UNETR or a MedNeXt, each taking ``valid_trim=`` and exposing
-    ``output_channels``."""
+    Swin UNETR, a MedNeXt or a SegMamba, each taking ``valid_trim=`` and
+    exposing ``output_channels``."""
 
     def __init__(self, module):
         self.module = module.eval()
@@ -125,7 +126,12 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
     and ``out_0.conv_out.weight`` keys), which builds a
     :class:`~.models.mednext.MedNeXt` (a training checkpoint's
     ``dummy_tensor`` is dropped; its deep-supervision heads load and never
-    run); it runs NCDHW on every device, the faster layout on a card.
+    run); it runs NCDHW on every device, the faster layout on a card. So
+    does a checkpoint of ge-xing's ``SegMamba`` (its
+    ``vit.downsample_layers.0.0.weight`` and
+    ``encoder5.layer.conv1.conv.weight`` keys), which builds a
+    :class:`~.models.segmamba.SegMamba` (its selective scans run through
+    ``ops.selective_scan``: on a card the hand kernels).
     """
     device = resolve_device(device)
     if dtype is None:
@@ -142,6 +148,10 @@ def load_model(path=None, affinity_mode=True, device=None, dtype=None,
             return _published(mednext.MedNeXt, mednext.widths_from_state_dict,
                               state_dict, affinity_mode, width_multiplier,
                               device, dtype)
+        if segmamba.is_segmamba_state_dict(state_dict):
+            return _published(segmamba.SegMamba,
+                              segmamba.widths_from_state_dict, state_dict,
+                              affinity_mode, width_multiplier, device, dtype)
     if fold_bn is None:
         fold_bn = dtype == torch.bfloat16
     kw = dict(

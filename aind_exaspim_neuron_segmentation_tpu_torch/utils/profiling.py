@@ -61,6 +61,25 @@ metric (``benchmark/metrics/``) that reads each:
     whatever the batch (none on the CPU) -- the card tests and
     ``chip_smoke.py``;
 
+* ``models.segmamba.SegMamba``'s forward, once per batch of patches:
+
+  - ``segmamba.encoder``: ``vit``, the downsamples, GSC blocks, Mamba
+    layers and stage MLPs -- none (it holds the two spans below);
+  - ``segmamba.decoder``: the UNETR blocks, up blocks and output conv --
+    none;
+  - ``segmamba.mamba``: each Mamba layer, from its LayerNorm to the
+    residual add -- ``mamba_device_ms.segmamba``;
+  - ``segmamba.scan``: each layer's three directions, from ``xz`` to the
+    gated sum (the causal convs, ``x_proj``, the scans, the gate) --
+    ``scan_roofline.segmamba``;
+  - the counter ``SegMamba.scan_tokens``, which the forward increments
+    by the (token, direction) pairs it scanned, 1,797,120 a 128^3 patch
+    -- the tests, against ``benchmark/counts/segmamba.py``;
+  - the counter ``ops.selective_scan.selective_scan.launches``, which
+    each scan of a direction on a card increments (its chunk scan, carry
+    and output kernels), 24 a SegMamba forward whatever the batch (none
+    on the CPU) -- the card tests and ``chip_smoke.py``;
+
 * ``models.unet3d.UNet3D``'s forward, once per batch of patches: the
   counter ``UNet3D.ndhwc_forwards``, which the forward increments when
   every conv took an NDHWC (channels-last) input, as on a card behind

@@ -25,7 +25,16 @@ Phases (any failure raises, and the script exits non-zero):
    float32-FMA bound (the limit of its CUDA-core design), the plain
    version and the library routes it replaced (``library_ms``); then a
    MedNeXt-L through ``load_model`` predicts a 256^3 block at batch 9
-   (27 patches, 3 forwards) and counts 186 launches;
+   (27 patches, 3 forwards) and counts 186 launches; then build the
+   selective-scan kernels (``csrc/selective_scan.cu``) and, at each of
+   SegMamba's four stage shapes (batch 9, bf16) and in each order, hold
+   the causal conv within one bf16 step of its plain version and the
+   scan's float32 output within 1e-5 of the plain version's largest
+   value, and time the conv, ``x_proj`` and the scan by CUDA events
+   beside the scan's bounds (HBM bytes; its design's own limit, the
+   special-function unit's exp2 over two passes): the 24 scans of a
+   batch-9 forward; then a SegMamba through ``load_model`` predicts a
+   256^3 block at batch 9 (3 forwards) and counts 72 scans;
 3. the float32 forward on the card against the port's CPU forward
    (width 0.25, 32^3, TF32 off, max-abs <= 1e-4), and a small float32
    ``predict`` on the card against the CPU (MAE <= 1e-5);
@@ -187,6 +196,8 @@ import torch
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
+# the special-function unit: 16 results a clock an SM, 132 SMs, 1980 MHz
+SFU_OPS_PER_S = 16 * 132 * 1.98e9
 # ~50 ms of device clock cycles, longer than the host takes to queue a
 # timed run of K1, its plain loop or index_add_
 SPIN_CYCLES = 100_000_000
@@ -200,6 +211,7 @@ K1_REPLACES = (
     "pallas_stitch.py:95"
 )
 DW_SOURCE = f"{PORT}/csrc/depthwise3d.cu"
+SCAN_SOURCE = f"{PORT}/csrc/selective_scan.cu"
 
 
 def check(cond, msg):
@@ -649,6 +661,139 @@ def phase_depthwise(depthwise, inference, dev, card):
     torch.cuda.empty_cache()
     return dict(rows=rows, launches=launches, forwards=forwards,
                 max_rel_f32=max_rel, bound_ms=bound, **total)
+
+
+SCAN_BATCH = 9
+# SegMamba's encoder stages at a 128^3 patch: (channels, map side)
+SEGMAMBA_STAGES = ((48, 64), (96, 32), (192, 16), (384, 8))
+
+
+def scan_bounds_ms(c, side, batch=SCAN_BATCH):
+    """Times of a Mamba layer's three directions of a batch at a stage on
+    this card: their least bytes (``xz`` read once, the summed ``y``
+    written once, bf16) at the HBM rate, and the limit of the kernel's
+    design: two passes of 16 exp2 a (token, channel) and the softplus's
+    two, a direction, on the special-function unit."""
+    tokens, d = side ** 3, 2 * c
+    moved = 2 * batch * tokens * 3 * d
+    sfu = 3 * 2 * batch * tokens * d * (16 + 2)
+    return moved / HBM_BYTES_PER_S * 1e3, sfu / SFU_OPS_PER_S * 1e3
+
+
+@tf32_off()
+def phase_selective_scan(scan_ops, inference, dev, card):
+    """The selective-scan kernels (``csrc/selective_scan.cu``) at each of
+    SegMamba's stage shapes, batch 9, bf16, in each order: the causal conv
+    within one bf16 step of its plain version, the scan's float32 output
+    within 1e-5 of the plain version's largest value on the same values;
+    the conv, ``x_proj`` and the scan timed beside the scan's bounds, and
+    summed over the 24 directions of a forward (2 layers a stage); then
+    the SegMamba cell's path, a SegMamba-keyed checkpoint through
+    ``load_model`` and ``predict`` of a 256^3 block at batch 9, counts 24
+    scans a forward."""
+    from io import BytesIO
+
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.segmamba import (
+        SegMamba,
+    )
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    total = dict(conv_ms=0.0, proj_ms=0.0, scan_ms=0.0, bytes_ms=0.0,
+                 sfu_ms=0.0)
+    rows, worst = [], 0.0
+    for c, side in SEGMAMBA_STAGES:
+        d, r, tokens = 2 * c, -(-c // 16), side ** 3
+        xz = torch.randn((SCAN_BATCH, tokens, 2 * d), generator=gen,
+                         device=dev).bfloat16()
+        conv_w = ((torch.rand((d, 1, 4), generator=gen, device=dev) - 0.5)
+                  .bfloat16())
+        conv_b = ((torch.rand(d, generator=gen, device=dev) - 0.5)
+                  .bfloat16())
+        x_proj = ((torch.rand((r + 32, d), generator=gen, device=dev) * 2
+                   - 1) / d ** 0.5).bfloat16()
+        dt_w = ((torch.rand((d, r), generator=gen, device=dev) * 2 - 1)
+                / r ** 0.5).bfloat16()
+        dt = torch.exp(np.log(1e-3) + np.log(100.0) * torch.rand(
+            d, generator=gen, device=dev))
+        dt_b = (dt + torch.log(-torch.expm1(-dt))).bfloat16()
+        a_log = torch.log(torch.arange(1, 17, device=dev,
+                                       dtype=torch.float32)).repeat(d, 1)
+        skip = torch.ones(d, device=dev)
+        acc = torch.zeros((SCAN_BATCH, tokens, d), device=dev)
+        row = dict(channels=c, side=side, conv_ms=0.0, proj_ms=0.0,
+                   scan_ms=0.0)
+        for order in scan_ops.ORDERS:
+            u = scan_ops.scan_conv(xz, conv_w, conv_b, order, side)
+            want_u = scan_ops.conv_reference(xz, conv_w, conv_b, order, side)
+            gap = (u.float() - want_u.float()).abs()
+            check(bool((gap <= 2.0 ** -7 * want_u.float().abs()
+                        + 1e-6 * float(want_u.float().abs().max())).all()),
+                  f"scan conv {order} {c} x {side}^3 off its plain version "
+                  f"by {float(gap.max()):.3e}")
+            del want_u, gap
+            dbl = F.linear(u, x_proj)
+            args = (u, dbl, dt_w, dt_b, a_log, skip, order, side)
+            y = scan_ops.selective_scan(*args)
+            want = scan_ops.scan_reference(*args).float()
+            rel = float((y - want).abs().max() / want.abs().max())
+            check(rel <= 1e-5, f"scan {order} {c} x {side}^3 off its plain "
+                  f"version by {rel:.3e} of its largest value")
+            worst = max(worst, rel)
+            del y, want
+            row["conv_ms"] += cuda_ms(lambda: scan_ops.scan_conv(
+                xz, conv_w, conv_b, order, side))[0]
+            row["proj_ms"] += cuda_ms(lambda: F.linear(u, x_proj))[0]
+            row["scan_ms"] += cuda_ms(lambda: scan_ops.selective_scan(
+                *args, acc=acc))[0]
+            del u, dbl, args
+        bytes_ms, sfu_ms = scan_bounds_ms(c, side)
+        row.update(bytes_ms=bytes_ms, sfu_ms=sfu_ms)
+        rows.append(row)
+        for key in total:  # two Mamba layers a stage
+            total[key] += 2 * row[key]
+        print(f"selective scan, {c} channels x {side}^3 tokens, batch "
+              f"{SCAN_BATCH}, bf16, three orders: scan {row['scan_ms']:.4f} "
+              f"ms (bytes bound {row['bytes_ms']:.4f}, "
+              f"{100 * row['bytes_ms'] / row['scan_ms']:.1f} % of it; "
+              f"special-function limit of the design {row['sfu_ms']:.4f}, "
+              f"{100 * row['sfu_ms'] / row['scan_ms']:.1f} %), conv "
+              f"{row['conv_ms']:.4f}, x_proj {row['proj_ms']:.4f}; x 2 "
+              f"a forward [{card}]", flush=True)
+        del xz, acc
+        torch.cuda.empty_cache()
+    print(f"selective scan, a batch-{SCAN_BATCH} SegMamba forward's 24 "
+          f"directions: scan {total['scan_ms']:.3f} ms, bytes bound "
+          f"{total['bytes_ms']:.3f} "
+          f"({100 * total['bytes_ms'] / total['scan_ms']:.1f} % of it), "
+          f"special-function limit of the design {total['sfu_ms']:.3f} "
+          f"({100 * total['sfu_ms'] / total['scan_ms']:.1f} %); conv "
+          f"{total['conv_ms']:.3f}, x_proj {total['proj_ms']:.3f}; worst "
+          f"relative gap {worst:.2e} [{card}]", flush=True)
+    buf = BytesIO()
+    torch.save(SegMamba().state_dict(), buf)
+    buf.seek(0)
+    runner = inference.load_model(buf, affinity_mode=True, device=dev,
+                                  dtype=torch.bfloat16)
+    check(isinstance(runner.module, SegMamba),
+          f"load_model built {type(runner.module).__name__}")
+    vol = np.random.default_rng(23).uniform(0, 1500, (256,) * 3).astype(
+        np.float32)
+    before = scan_ops.selective_scan.launches
+    aff = inference.predict(vol, runner, patch_shape=(128,) * 3,
+                            overlap=(32,) * 3, trim=8, batch_size=SCAN_BATCH,
+                            verbose=False)
+    launches = scan_ops.selective_scan.launches - before
+    check(launches == 24 * 3, f"a 256^3 SegMamba predict at batch "
+          f"{SCAN_BATCH} launched {launches} scans")
+    check(bool(np.isfinite(aff).all()), "SegMamba predict not finite")
+    print(f"selective scan: load_model (bf16) of a SegMamba checkpoint and "
+          f"predict of a 256^3 block at batch {SCAN_BATCH} (27 patches, 3 "
+          f"forwards) launched {launches} scans, 24 a forward [{card}]",
+          flush=True)
+    del runner, vol, aff
+    torch.cuda.empty_cache()
+    return dict(rows=rows, launches=launches, max_rel_f32=worst, **total)
 
 
 @tf32_off()
@@ -2455,6 +2600,7 @@ def main(argv):
         augment_device,
         depthwise,
         scatter,
+        selective_scan,
     )
     from aind_exaspim_neuron_segmentation_tpu_torch.ops.predigest import (
         predigest_slab,
@@ -2479,6 +2625,11 @@ def main(argv):
     print(f"depthwise kernel built and loaded in "
           f"{time.perf_counter() - t0:.1f} s")
     dw = phase_depthwise(depthwise, inference, dev, card)
+    t0 = time.perf_counter()
+    cuda_build.load("selective_scan")
+    print(f"selective-scan kernels built and loaded in "
+          f"{time.perf_counter() - t0:.1f} s")
+    sc = phase_selective_scan(selective_scan, inference, dev, card)
     phase_parity(inference, dev)
     where = f"{card}; {os.cpu_count()} CPUs"
     with tempfile.TemporaryDirectory() as tmp:
@@ -2538,6 +2689,20 @@ def main(argv):
         fma_bound_by=("float32 FMAs on the CUDA cores: the limit of this "
                       "CUDA-core design"),
         library_ms=dw["library_ms"], shapes=dw["rows"],
+    ), dict(
+        name="selective_scan", route="cuda", source=SCAN_SOURCE,
+        replaces="none (the JAX package has no SegMamba)",
+        launches=sc["launches"],
+        launches_on=(f"predict of a 256^3 block at batch {SCAN_BATCH}, 3 "
+                     "SegMamba forwards (one launch a direction: the chunk "
+                     "scan, the carries, the output scan)"),
+        max_rel_err=sc["max_rel_f32"], ms=sc["scan_ms"],
+        kernel_ms=sc["scan_ms"], conv_ms=sc["conv_ms"],
+        x_proj_ms=sc["proj_ms"], bound_ms=sc["bytes_ms"],
+        bound_by="HBM bytes", sfu_bound_ms=sc["sfu_ms"],
+        sfu_bound_by=("exp2 of two passes on the special-function unit: "
+                      "the limit of this design"),
+        shapes=sc["rows"],
     )]
     print(f"K1 launches: {launches} on the main path (phase 4), "
           f"{lazy_launches} on the lazy main path (phase 9), "

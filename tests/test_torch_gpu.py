@@ -42,7 +42,11 @@ from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
     scatter,
     stitch,
 )
+from aind_exaspim_neuron_segmentation_tpu_torch.ops import (
+    selective_scan as scan_ops,
+)
 from benchmark.counts import mednext as mednext_counts
+from benchmark.counts import segmamba as segmamba_counts
 
 K1_CASES = ("pallas_overlaps", "pallas_untouched", "random_overlapping",
             "grid_rows_aligned")
@@ -934,3 +938,208 @@ def test_depthwise_kernel_counts_only_what_it_launched(cuda, mode):
                                 mode)
     assert got.shape == (0, 4) + (depthwise.output_side(mode, 6),) * 3
     assert depthwise.depthwise3d.launches == before
+
+
+def scan_inputs(batch, length, channels, device, dtype, seed=0):
+    """A Mamba layer's ``xz`` (standard normal) and one direction's
+    weights, drawn as the SegMamba cell draws them (``A_log = log(1..16)``,
+    ``D = 1``, ``dt`` log-uniform in [1e-3, 1e-1]), in ``dtype``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, r = 2 * channels, -(-channels // 16)
+
+    def uniform(shape, bound):
+        return (torch.rand(shape, generator=gen, device=device) * 2 - 1) \
+            * bound
+
+    xz = torch.randn((batch, length, 2 * d), generator=gen, device=device)
+    dt = torch.exp(np.log(1e-3) + np.log(100.0) * torch.rand(
+        (d,), generator=gen, device=device))
+    weights = dict(
+        conv_w=uniform((d, 1, 4), 0.5), conv_b=uniform((d,), 0.5),
+        x_proj=uniform((r + 32, d), d ** -0.5),
+        dt_w=uniform((d, r), r ** -0.5),
+        dt_b=dt + torch.log(-torch.expm1(-dt)),
+        a_log=torch.log(torch.arange(1, 17, device=device,
+                                     dtype=torch.float32)).repeat(d, 1),
+        D=torch.ones(d, device=device))
+    return xz.to(dtype), {k: v.to(dtype) for k, v in weights.items()}
+
+
+def check_scan_kernel(xz, w, nslices):
+    """Each order's conv, scan and the gated sum of the three against the
+    plain version (``ops/selective_scan.py``) on the same values.
+
+    The conv: float32 within 1e-5 of the plain version's largest output
+    (its four products summed in another order); bf16 within one bf16
+    step of the plain version's bf16 output (each rounds its float32
+    sum). The scan's float32 ``y``, from either dtype's inputs: within
+    1e-5 of the oracle's largest value (float32 state updates in another
+    order, and the card's ``ex2.approx``, a few float32 ulps a step,
+    measured 2e-7). The gated sum in the activation dtype: float32 as the
+    scan; bf16 within one bf16 rounding (2^-8 relative) of the float32
+    oracle, plus 1e-5 of its scale. One scan launch a direction."""
+    f32 = xz.dtype == torch.float32
+    before = scan_ops.selective_scan.launches
+    acc = want_acc = None
+    for i, order in enumerate(scan_ops.ORDERS):
+        u = scan_ops.scan_conv(xz, w["conv_w"], w["conv_b"], order, nslices)
+        want_u = scan_ops.conv_reference(xz, w["conv_w"], w["conv_b"],
+                                         order, nslices)
+        scale = float(want_u.float().abs().max())
+        gap = (u.float() - want_u.float()).abs()
+        if f32:
+            assert float(gap.max()) <= 1e-5 * scale, (order, float(gap.max()))
+        else:
+            assert bool((gap <= 2.0 ** -7 * want_u.float().abs()
+                         + 1e-6 * scale).all()), (order, float(gap.max()))
+        del want_u, gap
+        dbl = torch.nn.functional.linear(u, w["x_proj"])
+        args = (u, dbl, w["dt_w"], w["dt_b"], w["a_log"], w["D"], order,
+                nslices)
+        y = scan_ops.selective_scan(*args)
+        want = scan_ops.scan_reference(*args).float()
+        scale = float(want.abs().max())
+        assert y.dtype == torch.float32
+        assert float((y - want).abs().max()) <= 1e-5 * scale, order
+        last = i == len(scan_ops.ORDERS) - 1
+        acc = scan_ops.selective_scan(*args, acc=acc,
+                                      xz=xz if last else None)
+        want_acc = want if want_acc is None else want_acc + want
+        del y, want, dbl, u
+    d = w["D"].shape[0]
+    want = want_acc * torch.nn.functional.silu(xz[..., d:].float())
+    scale = float(want.abs().max())
+    assert acc.dtype == xz.dtype
+    gap = (acc.float() - want).abs()
+    tol = (1e-5 * scale if f32
+           else 2.0 ** -8 * want.abs() + 1e-5 * scale)
+    assert bool((gap <= tol).all()), float(gap.max())
+    assert scan_ops.selective_scan.launches - before == 2 * 3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("stage", [0, 1], ids=["stage0", "stage1"])
+@torch.no_grad()
+def test_selective_scan_kernel_at_segmamba_stage_shapes(cuda, no_tf32,
+                                                        stage, dtype):
+    """The kernels at SegMamba's published stage 0 (48 channels, 64^3
+    tokens, 64 slices) and stage 1 (96 channels, 32^3, 32 slices) shapes,
+    batch 9: every order, then the three directions summed and gated."""
+    st = segmamba_counts.stages(128)[stage]
+    xz, w = scan_inputs(9, st["tokens"], st["channels"], cuda, dtype)
+    check_scan_kernel(xz, w, st["side"])
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bf16"])
+@pytest.mark.parametrize("batch,dims,channels", [
+    (1, (3, 2, 2), 8), (3, (4, 5, 7), 16), (2, (16, 8, 8), 8),
+    (1, (8, 8, 8), 384)],
+    ids=["one_chunk", "odd_sides", "many_chunks", "stage3_widths"])
+@torch.no_grad()
+def test_selective_scan_kernel_small_and_edge_shapes(cuda, no_tf32, batch,
+                                                     dims, channels, dtype):
+    """A sequence shorter than one chunk, odd slice sides, chunks of a
+    partial stage, and stage 3's 768 inner channels."""
+    xz, w = scan_inputs(batch, int(np.prod(dims)), channels, cuda, dtype,
+                        seed=channels)
+    check_scan_kernel(xz, w, dims[0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bad", ["float16", "mixed", "not_contiguous",
+                                 "narrow"])
+def test_selective_scan_kernel_refuses_what_it_does_not_take(cuda, bad):
+    """The wrappers raise on a dtype the kernels lack, on mixed dtypes, on
+    a non-contiguous map and on rows not a whole number of 16 bytes, and
+    launch nothing."""
+    channels = 1 if bad == "narrow" else 8
+    xz, w = scan_inputs(1, 4 * 4 * 4, channels, cuda, torch.float32)
+    u = torch.zeros((1, 64, 2 * channels), device=cuda)
+    dbl = torch.zeros((1, 64, w["dt_w"].shape[1] + 32), device=cuda)
+    if bad == "float16":
+        xz, u, dbl = xz.half(), u.half(), dbl.half()
+    elif bad == "mixed":
+        dbl = dbl.bfloat16()
+    elif bad == "not_contiguous":
+        u = torch.zeros((1, 2 * channels, 64), device=cuda).transpose(1, 2)
+    before = scan_ops.selective_scan.launches
+    with pytest.raises(ValueError if bad in ("not_contiguous", "narrow")
+                       else TypeError):
+        if bad == "narrow":
+            scan_ops.scan_conv(xz, w["conv_w"], w["conv_b"], "slice", 4)
+        else:
+            scan_ops.selective_scan(u, dbl, w["dt_w"], w["dt_b"],
+                                    w["a_log"], w["D"], "slice", 4)
+    assert scan_ops.selective_scan.launches == before
+
+
+@pytest.mark.gpu
+def test_segmamba_bf16_forward_on_card_within_the_cell_limits(cuda):
+    """SegMamba at its published widths, built by ``load_model`` from a
+    SegMamba-keyed checkpoint of seeded weights, bf16 on the card: 4
+    normalized 128^3 tube patches, whose affinities' central 112^3 (trim
+    8) lie within the limits of ``segmamba_affinity_infer`` of the plain
+    float32 reference's (TF32 off); one forward launches 24 scans and
+    scans 1,797,120 (token, direction) pairs a patch."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.segmamba import (
+        SegMamba,
+    )
+    from benchmark import harness, inputs
+    from benchmark.models import segmamba as arch
+
+    cfg = harness.load_json("configs", "segmamba_affinity_infer.json")
+    params = arch.weights(cfg, 23, cuda, None)
+    runner = arch.runner(cfg, params, cuda)
+    assert isinstance(runner.module, SegMamba)
+    assert runner.module.out.conv.conv.weight.dtype == torch.bfloat16
+    block = inputs.tube_volume(23, 0, 256, 32, 4, 120, 350)[0]
+    img = normalize(np.minimum(block, 1000), percentiles=(1, 99.9))
+    x = torch.from_numpy(np.stack([
+        img[z:z + 128, y:y + 128, 64:192] for z in (0, 128) for y in (0, 96)
+    ])[:, None].astype(np.float32)).to(cuda)
+    tokens, launches = SegMamba.scan_tokens, scan_ops.selective_scan.launches
+    with torch.inference_mode():
+        got = torch.sigmoid(runner.module(x, valid_trim=8).float())
+    assert scan_ops.selective_scan.launches - launches == 24
+    assert SegMamba.scan_tokens - tokens == 4 * 1_797_120
+    with torch.no_grad():
+        want = torch.cat([torch.sigmoid(arch.forward(params, part))
+                          for part in x.split(2)])
+    want = want[:, :, 8:-8, 8:-8, 8:-8]
+    fig = parity_line("SegMamba bf16 on the card vs float32 reference",
+                      got.cpu().numpy(), want.cpu().numpy())
+    limits = cfg["limits"]
+    assert fig["mae"] <= limits["aff_mae"], fig
+    assert fig["max_abs"] <= limits["aff_max_abs"], fig
+
+
+@pytest.mark.gpu
+def test_segmamba_predict_on_card_launches_24_scans_a_forward(cuda):
+    """``load_model`` of a SegMamba-keyed checkpoint and ``predict`` of a
+    256^3 block at the cell's grid (patch 128, overlap 32, batch 9: 27
+    patches in 3 forwards) launch 72 scans and count 27 patches' scanned
+    (token, direction) pairs, as the counts say."""
+    from aind_exaspim_neuron_segmentation_tpu_torch.models.segmamba import (
+        SegMamba,
+    )
+    from benchmark import harness
+    from benchmark.models import segmamba as arch
+
+    cfg = harness.load_json("configs", "segmamba_affinity_infer.json")
+    runner = arch.runner(cfg, arch.weights(cfg, 24, cuda, None), cuda)
+    vol = np.random.default_rng(24).uniform(0, 1500, (256,) * 3).astype(
+        np.float32)
+    tokens, launches = SegMamba.scan_tokens, scan_ops.selective_scan.launches
+    aff = inference.predict(vol, runner, patch_shape=(128,) * 3,
+                            overlap=(32,) * 3, trim=8, batch_size=9,
+                            verbose=False)
+    assert scan_ops.selective_scan.launches - launches == 24 * 3
+    assert SegMamba.scan_tokens - tokens == segmamba_counts.scan_tokens(
+        128, 27) == 27 * 1_797_120
+    assert aff.shape == (3, 256, 256, 256)
+    assert bool(np.isfinite(aff).all())
